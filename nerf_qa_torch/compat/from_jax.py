@@ -2,11 +2,16 @@
 
 The JAX package keeps the VGG pyramid as a pytree ``{'stageK': [{'kernel':
 HWIO, 'bias': (O,)}, ...]}`` (``init_vgg16_params``, or a converted
-checkpoint) and α/β as flat (1475,) vectors. This module turns plain dicts
-of ``np.ndarray`` into the port's reference-layout ``state_dict`` (the
-layout ``nerf_qa_tpu/compat/export_torch._dists_module_out`` writes:
-OIHW convs under torchvision indices, ``filter`` buffers, ImageNet
-``mean`` / ``std``). It imports nothing of JAX: callers hand it numpy.
+checkpoint), α/β as flat (1475,) vectors, and the NR ViT, JBU stack and
+decoder as flax param trees. This module turns plain dicts of
+``np.ndarray`` into the port's ``state_dict``s in the reference key
+layouts: the DISTS module of ``nerf_qa_tpu/compat/export_torch.
+_dists_module_out`` (OIHW convs under torchvision indices, ``filter``
+buffers, ImageNet ``mean`` / ``std``), DINOv2's ViT keys, FeatUp's
+upsampler keys and the reference NR decoder keys of
+``export_nr_state_dict``. Each loads with ``strict=True``; the JAX
+package's importers (``compat/torch_{vit,featup,nr}.py``) read them back.
+It imports nothing of JAX: callers hand it numpy.
 """
 from __future__ import annotations
 
@@ -68,3 +73,117 @@ def dists_weights_from_jax(alpha, beta) -> DISTSWeights:
     when the JAX side built them)."""
     return DISTSWeights(_t(np.asarray(alpha).reshape(-1)),
                         _t(np.asarray(beta).reshape(-1)))
+
+
+def _conv1x1_or_kxk(layer: Mapping[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax Conv {'kernel': HWIO, 'bias'} -> torch (OIHW weight, bias)."""
+    k = np.asarray(layer["kernel"], np.float32)
+    return _t(k.transpose(3, 2, 0, 1)), _t(layer["bias"])
+
+
+def _dense(layer: Mapping[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:
+    """flax Dense {'kernel': (in, out), 'bias'} -> torch Linear (out, in)."""
+    return _t(np.asarray(layer["kernel"], np.float32).T), _t(layer["bias"])
+
+
+def _block(sd: dict, prefix: str, blk: Mapping[str, Any], *,
+           qkv_bias: bool | None, layer_scale: bool | None) -> None:
+    """flax TransformerBlock -> DINOv2 Block keys. ``None`` for
+    ``qkv_bias`` / ``layer_scale`` writes the entry only when it is not the
+    reference's implicit default (zero bias, unit gamma), as
+    ``compat/export_torch._block_out`` does; True always writes it."""
+    sd[f"{prefix}.norm1.weight"] = _t(blk["LayerNorm_0"]["scale"])
+    sd[f"{prefix}.norm1.bias"] = _t(blk["LayerNorm_0"]["bias"])
+    attn = blk["Attention_0"]
+    w, b = _dense(attn["Dense_0"])
+    sd[f"{prefix}.attn.qkv.weight"] = w
+    if qkv_bias or (qkv_bias is None and bool(b.any())):
+        sd[f"{prefix}.attn.qkv.bias"] = b
+    sd[f"{prefix}.attn.proj.weight"], sd[f"{prefix}.attn.proj.bias"] = _dense(
+        attn["Dense_1"])
+    for ls, ours in (("ls1", "LayerScale_0"), ("ls2", "LayerScale_1")):
+        gamma = _t(blk[ours]["gamma"])
+        if layer_scale or (layer_scale is None and not bool((gamma == 1).all())):
+            sd[f"{prefix}.{ls}.gamma"] = gamma
+    sd[f"{prefix}.norm2.weight"] = _t(blk["LayerNorm_1"]["scale"])
+    sd[f"{prefix}.norm2.bias"] = _t(blk["LayerNorm_1"]["bias"])
+    mlp = blk["Mlp_0"]
+    sd[f"{prefix}.mlp.fc1.weight"], sd[f"{prefix}.mlp.fc1.bias"] = _dense(mlp["Dense_0"])
+    sd[f"{prefix}.mlp.fc2.weight"], sd[f"{prefix}.mlp.fc2.bias"] = _dense(mlp["Dense_1"])
+
+
+def vit_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``ViTS14`` params (numpy) -> the port's ViTS14 ``state_dict``
+    (DINOv2 keys; ``pos_embed`` patch-only at the model grid)."""
+    sd = {}
+    sd["patch_embed.proj.weight"], sd["patch_embed.proj.bias"] = _conv1x1_or_kxk(
+        params["patch_embed"])
+    for name in ("cls_token", "register_tokens", "pos_embed"):
+        sd[name] = _t(params[name])
+    depth = sum(1 for k in params if k.startswith("block"))
+    for i in range(depth):
+        _block(sd, f"blocks.{i}", params[f"block{i}"], qkv_bias=True,
+               layer_scale=True)
+    sd["norm.weight"] = _t(params["norm"]["scale"])
+    sd["norm.bias"] = _t(params["norm"]["bias"])
+    return sd
+
+
+def jbu_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX ``JBUStack`` params (numpy) -> the port's JBUStack
+    ``state_dict`` in FeatUp's upsampler layout (the inverse of
+    ``compat/torch_featup.convert_featup_jbu``)."""
+    sd = {}
+    for i in range(1, 5):
+        u = params[f"up{i}"]
+        sd[f"up{i}.range_temp"] = _t(np.asarray(u["range_temp"]).reshape(()))
+        sd[f"up{i}.sigma_spatial"] = _t(np.asarray(u["sigma_spatial"]).reshape(()))
+        for j, name in ((0, "range_proj_in"), (3, "range_proj_out")):
+            (sd[f"up{i}.range_proj.{j}.weight"],
+             sd[f"up{i}.range_proj.{j}.bias"]) = _conv1x1_or_kxk(u[name])
+    sd["fixup_proj.1.weight"], sd["fixup_proj.1.bias"] = _conv1x1_or_kxk(
+        params["fixup_proj"])
+    return sd
+
+
+def _conv_layer(sd: dict, prefix: str, layer: Mapping[str, Any]) -> None:
+    """flax ConvLayer / ConvTransposeLayer -> reference ConvLayer keys. A
+    transposed kernel (HWIO) becomes torch's (in, out, kh, kw) with the
+    spatial flip undone (compat/torch_nr._conv_transpose inverted)."""
+    if "ConvTranspose_0" in layer:
+        k = np.asarray(layer["ConvTranspose_0"]["kernel"], np.float32)
+        sd[f"{prefix}.conv.weight"] = _t(k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+        sd[f"{prefix}.conv.bias"] = _t(layer["ConvTranspose_0"]["bias"])
+    else:
+        sd[f"{prefix}.conv.weight"], sd[f"{prefix}.conv.bias"] = _conv1x1_or_kxk(
+            layer["Conv_0"])
+    sd[f"{prefix}.norm_layer.norm.weight"] = _t(layer["ChannelNorm_0"]["scale"])
+    sd[f"{prefix}.norm_layer.norm.bias"] = _t(layer["ChannelNorm_0"]["bias"])
+
+
+def nr_decoder_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """JAX v7/v8 ``NRDecoder`` params (numpy) -> the reference decoder
+    ``state_dict`` (``transformer_decoder.{i}``, ``trans2sem``,
+    ``decoder.{i}.block.{j}``, ``decoder.{i}.upsample_layer``): the keys
+    and values ``compat/export_torch.export_nr_state_dict`` writes.
+    ``NRDecoder.from_state_dict`` loads it with ``strict=True``."""
+    sd: dict[str, torch.Tensor] = {}
+    n_trans = sum(1 for k in params if k.startswith("trans") and k != "trans2sem")
+    for i in range(n_trans):
+        _block(sd, f"transformer_decoder.{i}", params[f"trans{i}"],
+               qkv_bias=None, layer_scale=None)
+    if "trans2sem" in params:
+        _conv_layer(sd, "trans2sem", params["trans2sem"])
+    n_refine = sum(1 for k in params if k.startswith("refine"))
+    for i in range(n_refine):
+        stage = params[f"refine{i}"]
+        convs = sorted((k for k in stage if k.startswith("ConvLayer_")),
+                       key=lambda k: int(k.split("_")[1]))
+        if "ConvTransposeLayer_0" in stage:
+            tail = stage["ConvTransposeLayer_0"]
+        else:  # the non-upsampling stages end in a plain ConvLayer
+            tail = stage[convs.pop()]
+        for j, name in enumerate(convs):
+            _conv_layer(sd, f"decoder.{i}.block.{j}", stage[name])
+        _conv_layer(sd, f"decoder.{i}.upsample_layer", tail)
+    return sd

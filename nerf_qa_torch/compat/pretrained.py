@@ -1,13 +1,16 @@
 """Pretrained-backbone resolution for the port's entry points.
 
-Counterpart of ``nerf_qa_tpu/compat/pretrained.py`` for this slice's two
-backbones: the VGG16 pyramid and the DISTS α/β. Resolution order:
+Counterpart of ``nerf_qa_tpu/compat/pretrained.py``: the VGG16 pyramid,
+the DISTS α/β, the DINOv2 ViT and the FeatUp JBU upsampler, plus the
+reference-layout NR checkpoint. Resolution order:
 
-1. explicit CLI path (``--vgg-ckpt`` / ``--dists-weights``);
-2. environment variable (``NERF_QA_VGG_CKPT``, ``NERF_QA_DISTS_WEIGHTS``);
+1. explicit CLI path (``--vgg-ckpt`` / ``--dists-weights`` /
+   ``--vit-ckpt`` / ``--jbu-ckpt``);
+2. environment variable (``NERF_QA_VGG_CKPT``, ``NERF_QA_DISTS_WEIGHTS``,
+   ``NERF_QA_VIT_CKPT``, ``NERF_QA_JBU_CKPT``);
 3. bundled asset (α/β only — converted from the reference's weights.pt);
-4. random VGG with a loud warning (same FLOPs; quality numbers
-   meaningless), He-normal from a seeded ``torch.Generator``.
+4. random weights with a loud warning (same FLOPs; quality numbers
+   meaningless), from a seeded ``torch.Generator``.
 
 Formats: torch ``.pt`` / ``.pth`` / ``.bin`` load natively (a torchvision
 VGG16, its ``features``, or a reference DISTS / FR / NR state dict), and
@@ -17,6 +20,7 @@ writes).
 """
 from __future__ import annotations
 
+import math
 import os
 import re
 import sys
@@ -24,6 +28,7 @@ from typing import Any, Mapping
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from nerf_qa_torch.compat.from_jax import reference_buffers, vgg_state_dict_from_jax
 from nerf_qa_torch.config import DISTSConfig
@@ -34,9 +39,17 @@ from nerf_qa_torch.core.vgg import (
     VGG16Pyramid,
     init_he_normal,
 )
+from nerf_qa_torch.models.nr.featup import JBUStack
+from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+from nerf_qa_torch.models.nr.vit import ViTS14, init_vit_
 
 ENV_VGG = "NERF_QA_VGG_CKPT"
 ENV_DISTS = "NERF_QA_DISTS_WEIGHTS"
+ENV_VIT = "NERF_QA_VIT_CKPT"
+ENV_JBU = "NERF_QA_JBU_CKPT"
+
+# key prefixes of the trained decoder in a reference NR state_dict
+NR_DECODER_PREFIXES = ("transformer_decoder.", "trans2sem.", "decoder.")
 
 _REF_KEY = re.compile(r"stage[1-5]\.(\d+)\.(weight|bias)$")
 
@@ -53,6 +66,12 @@ def add_backbone_args(parser) -> None:
                    help="DISTS α/β weights (.pt from the reference or "
                         f".npz); ${ENV_DISTS} fallback; defaults to the "
                         "bundled converted asset.")
+    g.add_argument("--vit-ckpt", default=None,
+                   help="DINOv2 ViT-S/14-reg checkpoint (.pt/.pth); "
+                        f"${ENV_VIT} fallback (NR drivers).")
+    g.add_argument("--jbu-ckpt", default=None,
+                   help="FeatUp JBU upsampler checkpoint (.pt/.pth); "
+                        f"${ENV_JBU} fallback (NR v7/v8 drivers).")
 
 
 def _warn(msg: str) -> None:
@@ -149,3 +168,129 @@ def resolve_dists_weights(cfg: DISTSConfig = DISTSConfig(),
                              f"{beta.shape}; expected ({dists.TOTAL_CHANNELS},)")
         return dists.weights_from_arrays(alpha, beta, cfg)
     return dists.load_pretrained_weights(cfg, path)
+
+
+def interpolate_pos_embed(patch_pos: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """Resample a (1, M·M, D) patch position grid to (1, grid², D).
+
+    Real ``dinov2_vits14_reg`` checkpoints carry a 37x37 grid (trained at
+    518²); the NR model at 224² needs 16x16. DINOv2's own convention
+    (``interpolate_pos_encoding``): bicubic, ``scale_factor = (grid +
+    0.1) / M``, no antialias — the JAX package's
+    ``compat/torch_vit.interpolate_pos_embed``."""
+    n = patch_pos.shape[1]
+    m = int(round(math.sqrt(n)))
+    if m * m != n:
+        raise ValueError(f"pos_embed patch count {n} is not a square grid")
+    t = patch_pos.float()
+    if m == grid_size:
+        return t
+    grid = t.reshape(1, m, m, -1).permute(0, 3, 1, 2)
+    scale = float(grid_size + 0.1) / m
+    out = F.interpolate(grid, scale_factor=(scale, scale), mode="bicubic",
+                        antialias=False)
+    if out.shape[-2:] != (grid_size, grid_size):
+        raise ValueError(f"resampled grid {tuple(out.shape[-2:])}, expected "
+                         f"{grid_size}x{grid_size}")
+    return out.permute(0, 2, 3, 1).reshape(1, grid_size * grid_size, -1)
+
+
+def vit_state_dict_from_dinov2(state_dict: Mapping[str, Any], depth: int = 12,
+                               grid_size: int = 16) -> dict[str, torch.Tensor]:
+    """A ``dinov2_vits14_reg`` state_dict (bare, under ``model`` /
+    ``teacher``, or FeatUp's ``model.model.`` prefix) -> the port's
+    ViTS14 ``state_dict``: the first ``depth`` blocks, the CLS row of
+    ``pos_embed`` dropped and the grid resampled; ``mask_token`` and
+    other training-only keys are left out."""
+    for key in ("model", "teacher"):
+        if isinstance(state_dict.get(key), Mapping):
+            state_dict = state_dict[key]
+    if any(k.startswith("model.model.") for k in state_dict):
+        state_dict = {k[len("model.model."):]: v for k, v in state_dict.items()
+                      if k.startswith("model.model.")}
+    keep = ViTS14(depth=depth, grid_size=grid_size).state_dict().keys()
+    sd = {}
+    for k in keep:
+        if k not in state_dict:
+            raise KeyError(f"DINOv2 checkpoint has no {k}")
+        sd[k] = torch.as_tensor(state_dict[k]).float()
+    sd["pos_embed"] = interpolate_pos_embed(sd["pos_embed"][:, 1:], grid_size)
+    return sd
+
+
+def resolve_vit_params(path: str | None = None, depth: int = 12,
+                       grid_size: int = 16, seed: int = 0) -> ViTS14:
+    """DINOv2 ViT (on the CPU) from a checkpoint, or random with a
+    warning."""
+    path = path or os.environ.get(ENV_VIT)
+    model = ViTS14(depth=depth, grid_size=grid_size)
+    if path:
+        model.load_state_dict(vit_state_dict_from_dinov2(
+            _torch_load(path), depth, grid_size), strict=True)
+        return model
+    _warn("no DINOv2 checkpoint (--vit-ckpt / $" + ENV_VIT + ") — the NR "
+          "semantic encoder uses RANDOM weights.")
+    return init_vit_(model, torch.Generator().manual_seed(seed))
+
+
+def jbu_state_dict_from_featup(state_dict: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A FeatUp hub checkpoint (the full model under ``upsampler.``, the
+    upsampler alone, or either under ``model`` / ``state_dict``) -> the
+    port's JBUStack ``state_dict``."""
+    for key in ("model", "state_dict"):
+        if isinstance(state_dict.get(key), Mapping):
+            state_dict = state_dict[key]
+    if any(k.startswith("upsampler.") for k in state_dict):
+        state_dict = {k[len("upsampler."):]: v for k, v in state_dict.items()
+                      if k.startswith("upsampler.")}
+    sd = {}
+    for k, like in JBUStack(1).state_dict().items():
+        if k not in state_dict:
+            raise KeyError(f"FeatUp checkpoint has no upsampler key {k}")
+        v = torch.as_tensor(state_dict[k]).float()
+        # the scalar range_temp / sigma_spatial may be saved as (1,)
+        sd[k] = v.reshape(()) if like.dim() == 0 else v
+    return sd
+
+
+def resolve_jbu_params(path: str | None = None, dim: int = 384,
+                       seed: int = 1) -> JBUStack:
+    """FeatUp JBU upsampler (on the CPU) from a checkpoint, or random with
+    a warning."""
+    path = path or os.environ.get(ENV_JBU)
+    model = JBUStack(dim)
+    if path:
+        model.load_state_dict(jbu_state_dict_from_featup(_torch_load(path)),
+                              strict=True)
+        return model
+    _warn("no FeatUp checkpoint (--jbu-ckpt / $" + ENV_JBU + ") — the JBU "
+          "semantic pyramid uses RANDOM weights.")
+    return init_lecun_normal_(model, torch.Generator().manual_seed(seed))
+
+
+def load_nr_torch_file(path: str):
+    """A reference-layout NR ``.pth`` (train-nr.py's saved state, or the
+    JAX package's compat/export_torch.py ``--kind nr`` output) ->
+    (decoder state_dict, DISTS α/β arrays or None). A JAX orbax checkpoint
+    directory cannot be read without JAX and raises."""
+    if os.path.isdir(path):
+        raise ValueError(
+            f"{path} is a directory (a JAX orbax checkpoint?): reading orbax "
+            "checkpoints is not yet ported (ROADMAP Queue 1 item 11). The port "
+            "reads reference-layout torch .pth files; export one with the JAX "
+            "package's nerf_qa_tpu/compat/export_torch.py --kind nr")
+    sd = _torch_load(path)
+    if not isinstance(sd, Mapping):
+        raise ValueError(f"{path}: expected a state_dict, got {type(sd).__name__}")
+    sd = sd.get("state_dict", sd)
+    decoder = {k: torch.as_tensor(v).float() for k, v in sd.items()
+               if k.startswith(NR_DECODER_PREFIXES)}
+    if not decoder:
+        raise ValueError(f"{path}: no NR decoder keys ({', '.join(NR_DECODER_PREFIXES)})")
+    alpha_beta = None
+    for pre in ("encoder.dists.", "dists_model.", "dists."):
+        if f"{pre}alpha" in sd:
+            alpha_beta = tuple(torch.as_tensor(sd[f"{pre}{k}"]).detach().reshape(-1)
+                               .float().numpy() for k in ("alpha", "beta"))
+            break
+    return decoder, alpha_beta

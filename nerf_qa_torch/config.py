@@ -1,14 +1,14 @@
 """Explicit config dataclasses, and the device rule of every entry point.
 
 Counterpart of ``nerf_qa_tpu/config.py`` (a copy, not an import). This
-slice carries ``DISTSConfig`` only; the other configs come with their
-slices.
+carries ``DISTSConfig`` and ``NRModelConfig``; the other configs come
+with their slices.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
@@ -38,6 +38,67 @@ class DISTSConfig:
     c2: float = 1e-6
 
     def replace(self, **kw) -> "DISTSConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class NRModelConfig:
+    """No-reference model family (model_nr.py .. model_nr_v8.py).
+
+    ``version`` selects the architecture generation; v1-v7 differ from the
+    v8 flagship only in norm type, channel schedules, residual scales and
+    auxiliary heads (SURVEY §2 #9-16), so they are config points of one
+    parameterized decoder rather than copied modules. The port builds the
+    v7/v8 ChannelNorm generations; the others raise (ROADMAP Queue 1
+    item 11).
+    """
+
+    version: int = 8
+    vit_model: str = "dinov2"  # semantic backbone family
+    refine_up_depth: int = 2
+    transformer_decoder_depth: int = 2
+    dropout_rate: float = 0.2
+    refine_scale1: float = 1.0
+    refine_scale2: float = 0.1
+    refine_scale3: float = 0.1
+    refine_scale4: float = 0.1
+    dists_pref2ref_coeff: float = 0.5
+    # auxiliary score-regression head of the v3-v6 generations:
+    # 0 = off (v7/v8); 1 = score residual (v4, model_nr_v4.py:179-188);
+    # 2 = (+ mae map, v5:181-184); 4 = (+ pred_std, pred_mean,
+    # v6:188-203 with reg_activation calibration)
+    score_reg_channels: int = 0
+    reg_activation: str = "linear"  # 'linear' | 'relu' | 'sigmoid'
+    score_reg_scale: float = 1.0  # v3's wandb.config.score_reg_scale
+    # v3's RefineDown manifold consistency (model_nr_v3.py:65-93,256-267):
+    # re-encode the predicted image through the frozen pyramid and pull
+    # the predicted features toward it. 0 = off (v8 default).
+    re_encode_coeff: float = 0.0
+    # score-map objective weight (mode='score-map' batches: predicted
+    # ADISTS map vs the decoded -log10 map, nerf_nr_qa_prep_4.py:101-135)
+    score_map_coeff: float = 1.0
+    # execution knobs (no reference equivalent)
+    decoder_dtype: str = "float32"  # 'bfloat16' is not yet ported
+    remat: bool = False  # activation checkpointing; training only
+    dists: DISTSConfig = field(default_factory=DISTSConfig)
+
+    @property
+    def reg_channels(self) -> int:
+        """Effective score-regression channel count: explicit override or
+        the version's canonical head (v3/v4: 1, model_nr_v3.py:229-232 /
+        model_nr_v4.py:179-188; v5: 2, model_nr_v5.py:163-166; v6: 4,
+        model_nr_v6.py:167-170; otherwise none)."""
+        if self.score_reg_channels > 0:
+            return self.score_reg_channels
+        return {3: 1, 4: 1, 5: 2, 6: 4}.get(self.version, 0)
+
+    @property
+    def norm_type(self) -> str:
+        """BatchNorm+ReLU blocks for v1-v6, ChannelNorm+GELU for v7/v8
+        (model_nr_v7.py:18-51 swap)."""
+        return "channel" if self.version >= 7 else "batch"
+
+    def replace(self, **kw) -> "NRModelConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -109,6 +109,12 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_moment_sums.argtypes = [vp, vp, vp, vp, ci, ci, ci, ci,
                                             ci, ci, ci, ci, ci, vp]
             lib.nqt_moment_sums.restype = ci
+            lib.nqt_channel_norm.argtypes = [vp, vp, vp, vp, ci, ci,
+                                             ctypes.c_float, ci, ci, ci, vp]
+            lib.nqt_channel_norm.restype = ci
+            lib.nqt_jbu_filter.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
+                                           ci, ci, vp]
+            lib.nqt_jbu_filter.restype = ci
             lib.nqt_error_string.argtypes = [ci]
             lib.nqt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,7 +22,15 @@ from nerf_qa_torch.eval.video_scorer import FrameScorer
 from nerf_qa_tpu.compat.export_torch import _dists_module_out, export_fr_state_dict
 from nerf_qa_tpu.compat.torch_weights import export_vgg16_to_npz
 from nerf_qa_tpu.core import dists as jdists
-from tests.torch_parity import jax_params, np_params, one_torch_thread  # noqa: F401
+from tests.torch_parity import (  # noqa: F401
+    NR_SEM,
+    jax_nr,
+    jax_params,
+    np_params,
+    nr_config,
+    one_torch_thread,
+    torch_nr_from_jax,
+)
 
 REPO = pathlib.Path(__file__).resolve().parents[1]
 PORT = REPO / "nerf_qa_torch"
@@ -167,13 +176,18 @@ def test_port_and_chip_smoke_import_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('nerf_qa_tpu')]\n"
         "assert not bad, bad\n"
-        "print(len(names))\n"
+        "print(*names)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 15
+    names = out.stdout.split()
+    assert len(names) >= 27
+    for mod in ("models.nr.layers", "models.nr.vit", "models.nr.featup",
+                "models.nr.decoder", "models.nr.model", "ops.cuda.jbu",
+                "ops.cuda.channelnorm"):
+        assert f"nerf_qa_torch.{mod}" in names, mod
 
 
 def _imported_modules(path: pathlib.Path) -> set[str]:
@@ -195,3 +209,89 @@ def test_source_scan_no_jax_or_reference_package():
         for mod in _imported_modules(path):
             assert mod.split(".")[0] not in ("jax", "jaxlib", "flax", "optax",
                                              "nerf_qa_tpu"), (path, mod)
+
+
+def _assert_trees_equal(got, want, path=""):
+    if isinstance(want, dict):
+        assert set(got) == set(want), (path, set(got) ^ set(want))
+        for k in want:
+            _assert_trees_equal(got[k], want[k], f"{path}/{k}")
+    else:
+        np.testing.assert_array_equal(np.asarray(got), np.asarray(want),
+                                      err_msg=path)
+
+
+def test_nr_params_bridge_strict_and_round_trip(jax_nr, np_params):
+    """JAX random-init NR params -> from_jax -> the port's modules load
+    strict; the same state_dicts fed to the JAX package's importers
+    (convert_nr_decoder, convert_featup_jbu, convert_dinov2_vit) give back
+    the JAX params, flipped transposed-conv kernels included."""
+    from nerf_qa_torch.config import NRModelConfig as TNRConfig
+    from nerf_qa_tpu.compat.torch_featup import convert_featup_jbu
+    from nerf_qa_tpu.compat.torch_nr import convert_nr_decoder
+    from nerf_qa_tpu.compat.torch_vit import convert_dinov2_vit
+
+    model, dec_params = jax_nr
+    port = torch_nr_from_jax(model, dec_params, VGG16Pyramid(), nr_config(TNRConfig))
+    to_np = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+    _assert_trees_equal(convert_nr_decoder(port.decoder.state_dict(), upsample_stages=4),
+                        to_np(dec_params))
+    _assert_trees_equal(convert_featup_jbu(port.jbu.state_dict()),
+                        to_np(model.jbu_params))
+    vit_sd = dict(port.vit.state_dict())
+    cls_pos = torch.zeros(1, 1, vit_sd["pos_embed"].shape[-1])
+    vit_sd["pos_embed"] = torch.cat([cls_pos, vit_sd["pos_embed"]], dim=1)  # DINOv2's
+    _assert_trees_equal(convert_dinov2_vit(vit_sd, depth=2, grid_size=NR_SEM // 14),
+                        to_np(model.vit_params))
+
+
+def test_resolve_vit_and_jbu_params_from_torch_files(jax_nr, tmp_path, monkeypatch):
+    """A DINOv2-format .pth (CLS position row, a 6x6 grid resampled to 4x4,
+    a mask_token, two blocks of three) and a FeatUp .pth (the upsampler
+    under 'upsampler.') load as the JAX package's importers read them."""
+    from nerf_qa_torch.compat import from_jax
+    from nerf_qa_tpu.compat.torch_featup import load_featup_from_torch_file
+    from nerf_qa_tpu.compat.torch_vit import load_dinov2_from_torch_file
+
+    model, _ = jax_nr
+    rng = np.random.default_rng(12)
+    sd = from_jax.vit_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, model.vit_params))
+    sd.update({k.replace("blocks.1.", "blocks.2."): v for k, v in sd.items()
+               if k.startswith("blocks.1.")})
+    sd["pos_embed"] = torch.from_numpy(rng.normal(0, 0.02, (1, 37, 384)).astype(np.float32))
+    sd["mask_token"] = torch.zeros(1, 384)
+    vit_path = str(tmp_path / "dinov2.pth")
+    torch.save(sd, vit_path)
+    monkeypatch.setenv(tpre.ENV_VIT, vit_path)
+    got = tpre.resolve_vit_params(depth=2, grid_size=4).state_dict()
+    want = from_jax.vit_state_dict_from_jax(load_dinov2_from_torch_file(
+        vit_path, depth=2, grid_size=4))
+    assert got.keys() == want.keys()
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=1e-6, atol=1e-7, msg=k)
+
+    jbu_sd = from_jax.jbu_state_dict_from_jax(
+        jax.tree_util.tree_map(np.asarray, model.jbu_params))
+    jbu_path = str(tmp_path / "featup.pth")
+    torch.save({"upsampler." + k: v.reshape(1) if v.dim() == 0 else v
+                for k, v in jbu_sd.items()} | {"model.0.weight": torch.zeros(1)},
+               jbu_path)
+    got = tpre.resolve_jbu_params(jbu_path).state_dict()
+    want = from_jax.jbu_state_dict_from_jax(load_featup_from_torch_file(jbu_path))
+    for k in want:
+        torch.testing.assert_close(got[k], want[k], rtol=0, atol=0, msg=k)
+
+
+def test_resolve_vit_and_jbu_random_warn_and_are_seeded(capsys, monkeypatch):
+    monkeypatch.delenv(tpre.ENV_VIT, raising=False)
+    monkeypatch.delenv(tpre.ENV_JBU, raising=False)
+    a = tpre.resolve_vit_params(depth=1, seed=3)
+    b = tpre.resolve_vit_params(depth=1, seed=3)
+    j = tpre.resolve_jbu_params(seed=4)
+    assert capsys.readouterr().err.count("RANDOM") == 3
+    for k, v in a.state_dict().items():
+        torch.testing.assert_close(v, b.state_dict()[k], rtol=0, atol=0, msg=k)
+    w = a.state_dict()["blocks.0.attn.qkv.weight"]  # lecun normal, fan_in 384
+    assert abs(float(w.std()) - 384**-0.5) < 0.005
+    assert float(j.state_dict()["up1.sigma_spatial"]) == 1.0

@@ -187,7 +187,8 @@ def test_score_cli_image_pair_default_path_and_csv(pair_dirs, tmp_path, capsys):
     assert lines[0] == "frame,dists" and len(lines) == 2
 
 
-@pytest.mark.parametrize("extra", [["--metric", "adists"], ["--nr"],
+@pytest.mark.parametrize("extra", [["--metric", "adists"],
+                                   ["--nr", "--nr-ckpt", "."],  # an orbax dir
                                    ["--dist", "clip.mp4"]])
 def test_score_cli_unported_modes_exit(pair_dirs, extra):
     ref_dir, dist_dir, _ = pair_dirs
