@@ -3,9 +3,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
-ChannelNorm) and holds each against its plain PyTorch version on the
-card. It drives two paths at full width and checks that each went through
-its kernels:
+ChannelNorm, windowed T/S) and holds each against its plain PyTorch
+version on the card. It drives three paths at full width and checks that
+each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
   resized to 256², bf16, moments kernel), plus two pairs at full
@@ -15,7 +15,13 @@ its kernels:
   weights): JBU, ChannelNorm and moments kernels; scores against the
   all-plain path, the card's fp32 path against the port's CPU path at a
   small depth, frames/s, a per-layer breakdown and the profiler's top
-  kernels.
+  kernels;
+* ADISTS through the score CLI's batch step (``tools.score.adists_batch``)
+  at 256² (batch 128 of uint8 1080p pairs, fast bf16 resize, bf16 VGG)
+  and at full resolution (two fp32 1080p pairs), windowed T/S kernel:
+  scores against the plain T/S version, frames/s, a per-layer breakdown,
+  the card's fp32 path against the CPU path, and one run of the score
+  CLI (``--metric both``) on PNG pairs.
 
 It checks and times each kernel at its path's shapes against its plain
 version, with its bound and a PyTorch yardstick. Each phase prints one line; any failure
@@ -33,7 +39,9 @@ import json
 import math
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -66,6 +74,17 @@ CN_ROWS = 4099  # a multiple of no tile
 # ChannelNorm: fp32 row statistics in other orders; a bf16 output may round
 # the other way once (one bf16 ulp: 2**-7 of the value at most)
 CN_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (2**-7, 1e-2)}
+# ADISTS: the 256² path's stages 0-4 (stage 5, 16², is smaller than the
+# window) and the 1080p path's six stages
+ADISTS_BATCHES = 2  # batches of the counted 256² run
+ADISTS_TIMED = 2  # batches per timed turn
+FULL_BATCH = 2
+# windowed T/S kernel vs its plain version: fp32 window sums in other
+# orders, as a share of the d-map's largest value
+TSD_RTOL = 1e-4
+# per-image ADISTS, T/S kernel vs plain (the same ps and weights on both
+# sides, only the d-map's rounding differs)
+ADISTS_PLAIN_ATOL = 1e-5
 # NR scores, kernels vs the all-plain path on the serving config (both
 # sides run the same TF32 convolutions): the kernels' fp32 rounding
 # carried through the decoder; measured gaps 2.4e-7 to 3.6e-7
@@ -204,16 +223,18 @@ def channelnorm_calls(model, feats) -> list[tuple[int, int, bool]]:
 
 
 def reset_launches() -> None:
-    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments
+    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
 
     moments.launches = jbu.launches = channelnorm.launches = 0
+    windowed_tsd.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments
+    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
 
     return {"moments": moments.launches, "jbu": jbu.launches,
-            "channelnorm": channelnorm.launches}
+            "channelnorm": channelnorm.launches,
+            "windowed_tsd": windowed_tsd.launches}
 
 
 def check_jbu(gen) -> float:
@@ -311,7 +332,7 @@ def nr_path(vgg, gen):
     scores = scorer.score_frames(frames)
     counts = launch_counts()
     want = {"jbu": 4 * NR_BATCHES, "moments": 6 * NR_BATCHES,
-            "channelnorm": NR_CN_PER_BATCH * NR_BATCHES}
+            "channelnorm": NR_CN_PER_BATCH * NR_BATCHES, "windowed_tsd": 0}
     if counts != want:
         raise AssertionError(f"NR launches {counts}, expected {want}")
     if scores.shape != (NR_BATCHES * NR_BATCH,) or not np.isfinite(scores).all():
@@ -339,6 +360,7 @@ def nr_path(vgg, gen):
         reset_launches()
         on_card = small.to("cuda")(x64, x56).cpu()
         small_counts = launch_counts()
+        del small_counts["windowed_tsd"]  # not on the NR path
         on_cpu = small_cpu(x64.cpu(), x56.cpu())
     if min(small_counts.values()) == 0:
         raise AssertionError(f"fp32 card path skipped a kernel: {small_counts}")
@@ -471,6 +493,405 @@ def nr_timing(cn_calls, gen) -> tuple[dict[str, dict], dict[str, float]]:
     out["channelnorm"] = dict(tot, bound_by="bytes" if bound_by == {"bytes"}
                               else "operations")
     return out, errs
+
+
+def pyramid_hw(h: int, w: int) -> list[tuple[int, int]]:
+    """(H, W) of the six pyramid levels of an H×W input (the L2 pool's
+    output size is ⌊(H − 1) / 2⌋ + 1)."""
+    hw = [(h, w), (h, w)]
+    for _ in range(4):
+        h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+        hw.append((h, w))
+    return hw
+
+
+def tsd_shapes(batch: int, h: int, w: int) -> list[tuple[int, int, int, int]]:
+    """The windowed T/S kernel's input shapes on a path: every pyramid
+    level that fits the 21×21 window."""
+    return [(batch, sh, sw, c) for (sh, sw), c in zip(pyramid_hw(h, w), STAGE_C)
+            if sh >= 21 and sw >= 21]
+
+
+def tsd_args(shape, dtype, gen, ps_value=None, zero_channel=False):
+    """Inputs of one T/S call as the ADISTS path gives them: correlated
+    non-negative features, ps in [0, 1], normalised weights and the
+    inverse spatial L2 norms."""
+    n, h, w, c = shape
+    fx, fy = feature_pair(shape, dtype, gen)
+    if zero_channel:
+        fx[..., 0] = 0
+    ps = torch.rand((n, h - 20, w - 20), generator=gen, device="cuda")
+    if ps_value is not None:
+        ps.fill_(ps_value)
+    weights = torch.rand((n, c), generator=gen, device="cuda")
+    weights /= weights.sum(1, keepdim=True)
+    inv = {k: 1 / f.float().square().sum((1, 2)).sqrt().clamp_min(1e-12)
+           for k, f in (("inv_x", fx), ("inv_y", fy))}
+    return (fx, fy, ps, weights), inv
+
+
+def tsd_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Least time for one T/S call: the pair read once, ps, weights and
+    scales read once, the map written once; per channel 3 products per
+    input pixel, 21 taps × 5 moments of multiply-adds in the H pass (Hk·W
+    outputs) and in the W pass (Hk·Wk outputs), and ~20 operations of T,
+    S and the blend per output, at the fp32 rate."""
+    n, h, w, c = shape
+    hk, wk = h - 20, w - 20
+    n_bytes = 2 * n * h * w * c * itemsize + 2 * n * hk * wk * 4 + 3 * n * c * 4
+    ops = n * c * (3 * h * w + 210 * hk * w + 230 * hk * wk)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def tsd_check(got: torch.Tensor, want: torch.Tensor, what: str) -> float:
+    """Raise unless |got − want| ≤ TSD_RTOL · max|want|; return the
+    largest absolute error."""
+    err = float((got.double() - want.double()).abs().max())
+    scale = float(want.abs().max())
+    if not (torch.isfinite(got).all() and err <= TSD_RTOL * scale):
+        raise AssertionError(f"{what}: error {err} vs map scale {scale}")
+    return err
+
+
+def check_tsd(gen) -> tuple[float, dict[str, dict]]:
+    """Phase tsd_vs_plain: the T/S kernel against its plain version at
+    every stage shape of the 256² path (batch 128) and of the 1080p path
+    (batch 2), in bf16 and fp32, and at edge shapes and values; a timing
+    row per path shape in bf16 (the path's dtype). Returns the largest
+    error and each path's summed timing row."""
+    from nerf_qa_torch.ops.cuda import windowed_tsd as tsd
+
+    worst = {}
+    totals = {}
+    for label, shapes in (("256", tsd_shapes(BATCH, 256, 256)),
+                          ("1080", tsd_shapes(FULL_BATCH, *FRAME_HW))):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        bound_by = set()
+        for dt in (torch.bfloat16, torch.float32):
+            for shape in shapes:
+                args, inv = tsd_args(shape, dt, gen)
+                key = f"{shape} {str(dt).split('.')[-1]}"
+                want = tsd.windowed_tsd_plain(*args, **inv)
+                worst[key] = tsd_check(tsd.windowed_tsd(*args, **inv), want,
+                                       f"windowed_tsd {key} vs plain")
+                torch.cuda.synchronize()
+                if dt == torch.bfloat16:
+                    bound, by = tsd_bound(shape, 2)
+                    bound_by.add(by)
+                    row = {"ms": time_ms(lambda: tsd.windowed_tsd(*args, **inv), 10),
+                           "plain_ms": time_ms(lambda: tsd.windowed_tsd_plain(
+                               *args, **inv), 2),
+                           "bound_ms": bound}
+                    for k in tot:
+                        tot[k] += row[k]
+                    phase("timing", kernel="windowed_tsd", path=label,
+                          shape=list(shape), dtype="bfloat16",
+                          max_abs_err=worst[key], bound_by=by, **row)
+                del args, inv, want
+        totals[label] = dict(tot, bound_by="bytes" if bound_by == {"bytes"}
+                             else "operations", library_ms=None)
+    for shape, kw in (((1, 21, 21, 3), {}), ((2, 37, 53, 5), {}),
+                      ((1, 40, 1920, 8), {}), ((2, 45, 70, 12), {"ps_value": 0.0}),
+                      ((2, 45, 70, 12), {"ps_value": 1.0}),
+                      ((2, 45, 70, 12), {"zero_channel": True})):
+        for dt in (torch.bfloat16, torch.float32):
+            args, inv = tsd_args(shape, dt, gen, **kw)
+            key = f"{shape} {str(dt).split('.')[-1]} {kw or ''}".strip()
+            worst[key] = tsd_check(tsd.windowed_tsd(*args, **inv),
+                                   tsd.windowed_tsd_plain(*args, **inv),
+                                   f"windowed_tsd {key} vs plain")
+            torch.cuda.synchronize()
+    phase("tsd_vs_plain", rel_tol=TSD_RTOL, max_abs_err=worst, per_batch=totals)
+    return max(worst.values()), totals
+
+
+def adists_step(model, d_u8, r_u8, cfg) -> torch.Tensor:
+    """One ADISTS batch of the 256² serving path: uint8 frames, fast bf16
+    resize with the 1/255 scale folded in, then the score CLI's own batch
+    step (bf16 VGG, ADISTS, dist as x)."""
+    from nerf_qa_torch.ops.resize import resize_bilinear
+    from nerf_qa_torch.tools.score import adists_batch
+
+    x = resize_bilinear(d_u8, 256, 256, compute_dtype=torch.bfloat16, scale=1 / 255)
+    y = resize_bilinear(r_u8, 256, 256, compute_dtype=torch.bfloat16, scale=1 / 255)
+    return adists_batch(model, x, y, cfg)
+
+
+def adists_layers(model, d_u8, r_u8, cfg) -> tuple[dict[str, float], torch.Tensor]:
+    """Where one 256² ADISTS batch's time goes: ``adists.forward``'s steps
+    run one by one with CUDA events between them (the same functions, in
+    the same order). Returns the ms per layer and the per-image scores."""
+    from nerf_qa_torch.config import true_fp32
+    from nerf_qa_torch.core import adists
+    from nerf_qa_torch.ops.cuda.windowed_tsd import windowed_tsd
+    from nerf_qa_torch.ops.resize import resize_bilinear
+    from nerf_qa_torch.ops.windowed import fits_window
+
+    layers = dict.fromkeys(("resize_ms", "vgg_ms", "entropy_weights_ms",
+                            "gamma_ps_ms", "tsd_kernel_ms", "global_stage_ms"), 0.0)
+    spans = []
+
+    def mark(name, fn):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        out = fn()
+        b.record()
+        spans.append((name, a, b))
+        return out
+
+    n = d_u8.shape[0]
+    with torch.no_grad():
+        x, y = mark("resize_ms", lambda: [resize_bilinear(
+            f, 256, 256, compute_dtype=torch.bfloat16, scale=1 / 255)
+            for f in (d_u8, r_u8)])
+        both = mark("vgg_ms", lambda: model(torch.cat([x, y]), torch.bfloat16))
+        fx, fy = [f[:n] for f in both], [f[n:] for f in both]
+        with true_fp32():
+            weight = mark("entropy_weights_ms", lambda: adists.channel_weights(fx))
+            offsets = np.cumsum([0] + [f.shape[-1] for f in fx]).tolist()
+            d_total = torch.zeros(n, device="cuda")
+            ps = torch.ones((n, 256, 256, 1), device="cuda")
+            for k in range(5, -1, -1):
+                w_k = weight[:, offsets[k]:offsets[k + 1]]
+                if fits_window(fx[k].shape[1], fx[k].shape[2], cfg.window_size):
+                    def gamma_ps(k=k, ps=ps):
+                        g = adists._stage_gamma(fx[k], cfg.window_size,
+                                                cfg.block_pixels_threshold,
+                                                cfg.channel_block)
+                        return (adists._prob_update(g, ps, True),
+                                adists._inv_l2_norm(fx[k]), adists._inv_l2_norm(fy[k]))
+                    ps, ix, iy = mark("gamma_ps_ms", gamma_ps)
+                    d = mark("tsd_kernel_ms", lambda k=k, w_k=w_k, ps=ps, ix=ix, iy=iy:
+                             windowed_tsd(fx[k], fy[k], ps, w_k, inv_x=ix, inv_y=iy))
+                else:
+                    d, ps = mark("global_stage_ms", lambda k=k, w_k=w_k, ps=ps:
+                                 adists._global_stage(
+                                     fx[k], fy[k], adists._inv_l2_norm(fx[k]),
+                                     adists._inv_l2_norm(fy[k]), w_k, ps))
+                d_total += d.mean(dim=(1, 2))
+    torch.cuda.synchronize()
+    for name, a, b in spans:
+        layers[name] += a.elapsed_time(b)
+    return layers, 1.0 - d_total
+
+
+def profile_step(fn) -> dict:
+    """Host wall time, device busy time and idle share, and the top
+    kernels by device time of one call under torch.profiler."""
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = sorted(((e.key, e.device_time_total / 1e3)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     key=lambda kv: -kv[1])
+    busy_ms = sum(ms for _, ms in kernels)
+    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+            "device_idle_share": 1 - busy_ms / wall_ms,
+            "top_kernels": [[name[:160], ms] for name, ms in kernels[:12]]}
+
+
+def adists_path(model, gen) -> dict[str, int]:
+    """Phase adists_path: the 256² ADISTS serving path at batch 128,
+    counted, checked against the plain T/S version, timed in turns and
+    broken down by layer. Returns the launch counts of the counted run."""
+    from nerf_qa_torch.config import ADISTSConfig
+
+    cfg = ADISTSConfig(compute_dtype="bfloat16")
+    plain = cfg.replace(fused_tsd=False)
+    frames = (ADISTS_BATCHES * BATCH, *FRAME_HW, 3)
+    dist = torch.randint(0, 256, frames, generator=gen, device="cuda",
+                         dtype=torch.uint8)
+    ref = torch.randint(0, 256, frames, generator=gen, device="cuda",
+                        dtype=torch.uint8)
+    batches = [(dist[i * BATCH:(i + 1) * BATCH], ref[i * BATCH:(i + 1) * BATCH])
+               for i in range(ADISTS_BATCHES)]
+    for c in (cfg, plain):  # warm-up
+        adists_step(model, *batches[0], c)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    scores = torch.cat([adists_step(model, d, r, cfg) for d, r in batches]).cpu()
+    counts = launch_counts()
+    want = {"moments": 0, "jbu": 0, "channelnorm": 0,
+            "windowed_tsd": 5 * ADISTS_BATCHES}
+    if counts != want:
+        raise AssertionError(f"ADISTS launches {counts}, expected {want}")
+    if scores.shape != (ADISTS_BATCHES * BATCH,) or not torch.isfinite(scores).all():
+        raise AssertionError(f"ADISTS scores {scores}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+
+    s_plain = adists_step(model, *batches[0], plain).cpu()
+    gap = float((scores[:BATCH] - s_plain).abs().max())
+    if not gap <= ADISTS_PLAIN_ATOL:
+        raise AssertionError(f"ADISTS kernel vs plain T/S: gap {gap}")
+    same = adists_step(model, dist[:BATCH], dist[:BATCH], cfg)
+    same_max = float(same.abs().max())
+    if same_max > SCORE_ATOL:
+        raise AssertionError(f"ADISTS identical pair scores {same_max}")
+
+    fps = {"kernel": [], "plain": []}
+    for name in ("kernel", "plain", "plain", "kernel"):
+        c = cfg if name == "kernel" else plain
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(ADISTS_TIMED):
+            adists_step(model, *batches[i % ADISTS_BATCHES], c)
+        end.record()
+        end.synchronize()
+        fps[name].append(BATCH * ADISTS_TIMED / (start.elapsed_time(end) / 1e3))
+
+    layers, replica = adists_layers(model, *batches[0], cfg)
+    replica_gap = float((replica.cpu() - scores[:BATCH]).abs().max())
+    if replica_gap > 1e-6:
+        raise AssertionError(f"layer breakdown's scores differ by {replica_gap}")
+    prof = profile_step(lambda: adists_step(model, *batches[0], cfg))
+    phase("adists_path", batch=BATCH, frame_hw=list(FRAME_HW),
+          batches=ADISTS_BATCHES, launches=counts,
+          launches_per_batch=counts["windowed_tsd"] // ADISTS_BATCHES,
+          scores_head=scores[:8].tolist(), kernel_vs_plain_max_gap=gap,
+          plain_atol=ADISTS_PLAIN_ATOL, identical_pair_max=same_max,
+          frames_per_s_kernel=fps["kernel"], frames_per_s_plain=fps["plain"],
+          layers_ms=layers, breakdown_vs_forward_gap=replica_gap,
+          peak_mem_gib=peak, **prof)
+    return counts
+
+
+def adists_fullres(model, gen) -> None:
+    """Phase adists_fullres: two fp32 1080p pairs at full resolution, bf16
+    config: kernel against the plain T/S version, launches, frames/s and
+    peak memory."""
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.tools.score import adists_batch
+
+    cfg = ADISTSConfig(compute_dtype="bfloat16")
+    plain = cfg.replace(fused_tsd=False)
+    x = torch.rand((FULL_BATCH, *FRAME_HW, 3), generator=gen, device="cuda")
+    y = (0.8 * x + 0.2 * torch.rand(x.shape, generator=gen, device="cuda"))
+    adists_batch(model, x, y, cfg)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    got = adists_batch(model, x, y, cfg).cpu()
+    launches = launch_counts()["windowed_tsd"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = adists_batch(model, x, y, plain).cpu()
+    if launches != 6 or not torch.isfinite(got).all():
+        raise AssertionError(f"full-resolution ADISTS: launches {launches}, "
+                             f"scores {got}")
+    gap = float((got - want).abs().max())
+    if gap > ADISTS_PLAIN_ATOL:
+        raise AssertionError(f"full-resolution ADISTS kernel vs plain gap {gap}")
+    ms = {name: time_ms(lambda c=c: adists_batch(model, x, y, c), 2)
+          for name, c in (("kernel", cfg), ("plain", plain))}
+    phase("adists_fullres", frame_hw=list(FRAME_HW), batch=FULL_BATCH,
+          scores=got.tolist(), launches=launches, kernel_vs_plain_max_gap=gap,
+          frames_per_s_kernel=FULL_BATCH / (ms["kernel"] / 1e3),
+          frames_per_s_plain=FULL_BATCH / (ms["plain"] / 1e3), peak_mem_gib=peak)
+
+
+def adists_cpu_parity(gen) -> None:
+    """Phase adists_cpu_parity: the card's fp32 ADISTS path, the T/S
+    kernel on, against the port's CPU path at 64²."""
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.tools.score import adists_batch
+
+    cfg = ADISTSConfig()
+    x = torch.rand((4, 64, 64, 3), generator=gen, device="cuda")
+    y = (0.8 * x + 0.2 * torch.rand(x.shape, generator=gen, device="cuda"))
+    reset_launches()
+    on_card = adists_batch(resolve_vgg_params(seed=0).cuda(), x, y, cfg).cpu()
+    launches = launch_counts()["windowed_tsd"]
+    on_cpu = adists_batch(resolve_vgg_params(seed=0), x.cpu(), y.cpu(), cfg)
+    gap = float((on_card - on_cpu).abs().max())
+    if launches != 3 or gap > SCORE_ATOL:
+        raise AssertionError(f"ADISTS card fp32 vs CPU: gap {gap}, launches "
+                             f"{launches}")
+    phase("adists_cpu_parity", hw=[64, 64], card_vs_cpu_fp32_gap=gap,
+          launches=launches, scores=on_card.tolist())
+
+
+def window_mean_choice(gen) -> None:
+    """Phase window_mean_choice: the two bodies of
+    ``ops.windowed.window_mean`` (dense band matmuls, depthwise
+    convolutions), both in true fp32, at every γ input of both ADISTS
+    paths (a 16-channel block where the path blocks its channels), and
+    the one ``window_mean`` takes there."""
+    from nerf_qa_torch.config import true_fp32
+    from nerf_qa_torch.ops import windowed
+
+    taps = windowed.gaussian_taps(21, 7.0)
+    shapes = [("256", s) for s in tsd_shapes(BATCH, 256, 256)]
+    shapes += [("1080", (b, h, w, 16 if h * w > 448 * 448 else c))
+               for b, h, w, c in tsd_shapes(FULL_BATCH, *FRAME_HW)]
+    rows = []
+    tot = {p: {"conv_ms": 0.0, "band_ms": 0.0, "chosen_ms": 0.0} for p in ("256", "1080")}
+    for path, shape in shapes:
+        x = torch.rand(shape, generator=gen, device="cuda")
+        with true_fp32():
+            band = lambda: windowed.window_mean_band(x, taps)  # noqa: E731
+            conv = lambda: windowed.window_mean_conv(x, taps)  # noqa: E731
+            err = check_max(conv(), band(), 1e-5, 1e-6,
+                            f"window_mean {shape} conv vs band")
+            row = {"path": path, "shape": list(shape), "max_abs_err": err,
+                   "conv_ms": time_ms(conv, 3), "band_ms": time_ms(band, 3)}
+        row["chosen"] = ("band" if shape[1] + shape[2] <= windowed.BAND_MAX_HW
+                         else "conv")
+        row["chosen_ms"] = row[row["chosen"] + "_ms"]
+        for k in tot[path]:
+            tot[path][k] += row[k]
+        rows.append(row)
+        del x
+    phase("window_mean_choice", band_max_hw=windowed.BAND_MAX_HW, rows=rows,
+          totals=tot)
+
+
+def score_cli_run() -> dict:
+    """Phase score_cli: ``tools.score.main(--metric both --json)`` on three
+    PNG pairs written to a temporary directory, on the card."""
+    import io
+
+    from PIL import Image
+
+    from nerf_qa_torch.tools import score
+
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        dirs = {k: Path(tmp) / k for k in ("ref", "dist")}
+        for d in dirs.values():
+            d.mkdir()
+        for i in range(3):
+            ref = rng.integers(0, 256, (96, 128, 3), dtype=np.uint8)
+            noise = rng.integers(-20, 21, ref.shape)
+            dist = np.clip(ref.astype(int) + noise, 0, 255).astype(np.uint8)
+            Image.fromarray(ref).save(dirs["ref"] / f"{i:03d}.png")
+            Image.fromarray(dist).save(dirs["dist"] / f"{i:03d}.png")
+        reset_launches()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = score.main(["--ref", str(dirs["ref"]), "--dist", str(dirs["dist"]),
+                             "--metric", "both", "--json", "--batch-size", "2"])
+        counts = launch_counts()
+    result = json.loads(out.getvalue().strip().splitlines()[-1])
+    ok = (rc == 0 and set(result) == {"dists", "adists"}
+          and all(result[m]["frames"] == 3 and math.isfinite(result[m]["video_score"])
+                  for m in result)
+          and counts["moments"] > 0 and counts["windowed_tsd"] > 0)
+    if not ok:
+        raise AssertionError(f"score CLI: rc {rc}, {result}, launches {counts}")
+    phase("score_cli", argv="--metric both --json --batch-size 2", result=result,
+          launches=counts)
+    return result
 
 
 def main() -> int:
@@ -693,6 +1114,15 @@ def main() -> int:
     del nr
     nr_rows, nr_errs = nr_timing(cn_calls, gen)
 
+    # 8. ADISTS: the T/S kernel at both paths' shapes, the window_mean
+    # choice, the 256² path, full resolution, CPU parity and the CLI
+    tsd_err, tsd_rows = check_tsd(gen)
+    window_mean_choice(gen)
+    adists_counts = adists_path(model, gen)
+    adists_fullres(model, gen)
+    adists_cpu_parity(gen)
+    score_cli_run()
+
     entries = [{
         "name": "moments",
         "route": "cuda",
@@ -723,6 +1153,20 @@ def main() -> int:
             "bound_by": row["bound_by"],
             "library_ms": row["library_ms"],
         })
+    row = tsd_rows["256"]
+    entries.append({
+        "name": "windowed_tsd",
+        "route": "cuda",
+        "source": "nerf_qa_torch/csrc/windowed_tsd.cu",
+        "replaces": "nerf_qa_tpu/ops/pallas/windowed_tsd.py:68",
+        "launches": adists_counts["windowed_tsd"],
+        "max_abs_err": tsd_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    })
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -14,8 +14,10 @@ Ported so far:
 * NR v8 no-reference scoring: ViT-S/14 -> JBU semantic pyramid (the
   ``jbu`` kernel) and the VGG16 pyramid -> transformer mixer and RefineUp
   decoder (ChannelNorm, the ``channelnorm`` kernel) -> DISTS of the
-  render against the
-  predicted features -> per-video mean.
+  render against the predicted features -> per-video mean;
+* ADISTS scoring at 256² and full resolution: VGG16 pyramid -> entropy
+  channel weights -> per stage, γ and the ps cascade -> the windowed T/S
+  map (the ``windowed_tsd`` kernel) -> 1 − Σ stage means.
 
 Entry points run on the card unless the caller passes ``device='cpu'``.
 """

@@ -1,8 +1,8 @@
 """Explicit config dataclasses, and the device rule of every entry point.
 
 Counterpart of ``nerf_qa_tpu/config.py`` (a copy, not an import). This
-carries ``DISTSConfig`` and ``NRModelConfig``; the other configs come
-with their slices.
+carries ``DISTSConfig``, ``ADISTSConfig`` and ``NRModelConfig``; the
+other configs come with their slices.
 """
 from __future__ import annotations
 
@@ -38,6 +38,29 @@ class DISTSConfig:
     c2: float = 1e-6
 
     def replace(self, **kw) -> "DISTSConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class ADISTSConfig:
+    """ADISTS metric configuration (ADISTS/ADISTS.py:34-69)."""
+
+    window_size: int = 21
+    compute_dtype: str = "float32"
+    # full-resolution execution knobs (no reference equivalent): gamma of
+    # a stage with more than block_pixels_threshold pixels is summed over
+    # channel blocks of channel_block, so the VALID moment maps never
+    # exist at full channel width (one fp32 stage-1 map at 1080p, batch
+    # 2, is ~1 GB); the plain T/S version is always channel-blocked
+    block_pixels_threshold: int = 448 * 448
+    channel_block: int = 16
+    # the windowed T/S map: True sends CUDA tensors to the CUDA kernel
+    # (ops/cuda/windowed_tsd.py) and CPU tensors to its plain version;
+    # False gives the plain version on any device (the reference the
+    # kernel is held against)
+    fused_tsd: bool = True
+
+    def replace(self, **kw) -> "ADISTSConfig":
         return dataclasses.replace(self, **kw)
 
 

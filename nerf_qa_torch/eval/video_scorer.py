@@ -69,8 +69,10 @@ class FrameScorer:
     Args:
       model: the VGG16 pyramid (``compat.pretrained.resolve_vgg_params``).
       weights: DISTSWeights (pretrained α/β by default elsewhere).
-      cfg: DISTSConfig — compute_dtype='bfloat16' + stats_impl='kernel'
-        is the fast serving config; fp32 + eager is the parity oracle.
+      cfg: DISTSConfig — the default, compute_dtype='bfloat16' +
+        stats_impl='kernel', is the fast serving config (the moments
+        kernel on the card, its plain sums for CPU tensors); fp32 + eager
+        is the parity oracle.
       resize_to: target (H, W) before scoring, or None to score at input
         resolution (full-size mode).
       antialias: the antialiased resizer; not yet ported.
@@ -82,7 +84,8 @@ class FrameScorer:
         self,
         model: VGG16Pyramid,
         weights: dists.DISTSWeights,
-        cfg: DISTSConfig = DISTSConfig(compute_dtype="bfloat16"),
+        cfg: DISTSConfig = DISTSConfig(compute_dtype="bfloat16",
+                                       stats_impl="kernel"),
         resize_to: tuple[int, int] | None = (256, 256),
         antialias: bool = False,
         mesh=None,

@@ -115,6 +115,11 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_jbu_filter.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ci, ci, vp]
             lib.nqt_jbu_filter.restype = ci
+            lib.nqt_windowed_tsd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
+                                             ci, ci, ci, ci,
+                                             ctypes.POINTER(ctypes.c_float),
+                                             ci, vp]
+            lib.nqt_windowed_tsd.restype = ci
             lib.nqt_error_string.argtypes = [ci]
             lib.nqt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,15 +1,19 @@
-"""Score image pairs or frame directories with DISTS, or renders alone with
-the NR model, on the GPU.
+"""Score image pairs or frame directories with DISTS and ADISTS, or renders
+alone with the NR model, on the GPU.
 
-Counterpart of the DISTS mode of ``nerf_qa_tpu/tools/score.py``: the
-metric's __main__ CLI (DISTS_pt.py:220-238, one image pair) and the
-per-video evaluation loops (run_test2.py:278-297 — per-frame scores
-mean-pooled to a video score). Frames batch through FrameScorer: bf16
-convs and the fused CUDA moments kernel by default, ``--fp32`` for the
-parity path (fp32, eager statistics).
+Counterpart of ``nerf_qa_tpu/tools/score.py``: the metric's __main__ CLI
+(DISTS_pt.py:220-238, one image pair) and the per-video evaluation loops
+(run_test2.py:278-297 — per-frame scores mean-pooled to a video score).
+DISTS frames batch through FrameScorer: bf16 convs and the fused CUDA
+moments kernel by default, ``--fp32`` for the parity path (fp32, eager
+statistics). ADISTS (``--metric adists|both``) runs fixed-shape batches
+through ``adists_batch`` with the distorted frame as ``x``, as the JAX
+CLI does; ``--fp32`` sets fp32 and keeps the windowed T/S kernel.
 
 Examples:
   python -m nerf_qa_torch.tools.score --ref r0.png --dist r1.png
+  python -m nerf_qa_torch.tools.score --ref gt_dir --dist render_dir \\
+      --metric both --json
   python -m nerf_qa_torch.tools.score --ref gt_dir --dist render_dir \\
       --full-size --out-csv scores.csv --json
   python -m nerf_qa_torch.tools.score --ref a.png --dist b.png --device cpu
@@ -35,7 +39,13 @@ import numpy as np
 import torch
 
 from nerf_qa_torch.compat import pretrained
-from nerf_qa_torch.config import DISTSConfig, NRModelConfig, resolve_device
+from nerf_qa_torch.config import (
+    ADISTSConfig,
+    DISTSConfig,
+    NRModelConfig,
+    resolve_device,
+)
+from nerf_qa_torch.core import adists
 from nerf_qa_torch.core.dists import weights_from_arrays
 from nerf_qa_torch.data.imaging import load_prepared, resize_image
 from nerf_qa_torch.data.video import MP4_TODO, load_video_frames
@@ -56,6 +66,18 @@ def _load_frames(path: str, resize: bool, keep_aspect: bool) -> np.ndarray:
                                  keep_aspect_ratio=keep_aspect)
     img = load_prepared(path, resize=resize, keep_aspect_ratio=keep_aspect)
     return img[None]
+
+
+def adists_batch(model, dist, ref, cfg: ADISTSConfig) -> torch.Tensor:
+    """Per-frame ADISTS (a tensor on the model's device) of one fixed-shape
+    batch of float frames in [0, 1], numpy or tensors on any device. The
+    distorted frame is ``x``, as in the JAX CLI (entropy weights and the
+    ps cascade come from ``x``)."""
+    device = next(model.parameters()).device
+    x = torch.as_tensor(dist).to(device, non_blocking=True)
+    y = torch.as_tensor(ref).to(device, non_blocking=True)
+    with torch.no_grad():
+        return adists.forward(model, x, y, cfg, as_loss=False)
 
 
 class NRScorer:
@@ -183,9 +205,6 @@ def main(argv=None) -> int:
 
     if args.nr:
         return _score_nr(args)
-    if args.metric != "dists":
-        raise SystemExit(f"--metric {args.metric}: ADISTS is not yet ported "
-                         "(ROADMAP Queue 1 item 7)")
     if args.ref is None:
         p.error("--ref is required")
 
@@ -198,13 +217,22 @@ def main(argv=None) -> int:
     n = ref.shape[0]
     bs = min(args.batch_size, n)
 
-    cfg = DISTSConfig(compute_dtype="float32" if args.fp32 else "bfloat16",
-                      stats_impl="eager" if args.fp32 else "kernel")
+    dtype = "float32" if args.fp32 else "bfloat16"
     model = pretrained.resolve_vgg_params(args.vgg_ckpt)
-    weights = pretrained.resolve_dists_weights(cfg, args.dists_weights)
-    scorer = FrameScorer(model, weights, cfg, resize_to=None,
-                         device=args.device)
-    results = {"dists": scorer.score_frames(dist, ref, batch_size=bs)}
+    results: dict[str, np.ndarray] = {}
+    if args.metric in ("dists", "both"):
+        cfg = DISTSConfig(compute_dtype=dtype,
+                          stats_impl="eager" if args.fp32 else "kernel")
+        weights = pretrained.resolve_dists_weights(cfg, args.dists_weights)
+        scorer = FrameScorer(model, weights, cfg, resize_to=None,
+                             device=args.device)
+        results["dists"] = scorer.score_frames(dist, ref, batch_size=bs)
+    if args.metric in ("adists", "both"):
+        acfg = ADISTSConfig(compute_dtype=dtype)
+        model = model.to(resolve_device(args.device)).eval()
+        results["adists"] = batched_map(
+            lambda d, r: adists_batch(model, d, r, acfg).cpu().numpy(),
+            (dist, ref), bs)
 
     if args.out_csv:
         header = "frame," + ",".join(results)

@@ -183,10 +183,11 @@ def test_port_and_chip_smoke_import_no_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     names = out.stdout.split()
-    assert len(names) >= 27
+    assert len(names) >= 30
     for mod in ("models.nr.layers", "models.nr.vit", "models.nr.featup",
                 "models.nr.decoder", "models.nr.model", "ops.cuda.jbu",
-                "ops.cuda.channelnorm"):
+                "ops.cuda.channelnorm", "ops.windowed", "ops.cuda.windowed_tsd",
+                "core.adists"):
         assert f"nerf_qa_torch.{mod}" in names, mod
 
 

@@ -7,7 +7,7 @@ have):  python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 import pytest
 import torch
 
-from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments
+from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
 
 pytestmark = pytest.mark.cuda
 
@@ -197,3 +197,111 @@ def test_jbu_kernel_rejects_grad_and_bad_shapes():
                        spatial, temp)  # H, W <= radius
     with pytest.raises(ValueError):
         jbu.jbu_filter(hr.transpose(1, 2), proj.transpose(1, 2), spatial, temp)
+
+
+def _tsd_inputs(shape, dtype, seed=0, ps_value=None, scaled=True):
+    n, h, w, c = shape
+    fx, fy = _pair(shape, dtype, seed)
+    g = torch.Generator(device="cuda").manual_seed(seed + 1)
+    ps = torch.rand((n, h - 20, w - 20), generator=g, device="cuda")
+    if ps_value is not None:
+        ps.fill_(ps_value)
+    weights = torch.rand((n, c), generator=g, device="cuda")
+    weights /= weights.sum(1, keepdim=True)
+    kw = {}
+    if scaled:
+        kw = {k: 1 / f.float().square().sum((1, 2)).sqrt().clamp_min(1e-12)
+              for k, f in (("inv_x", fx), ("inv_y", fy))}
+    return (fx, fy, ps, weights), kw
+
+
+def _assert_rel(got, want, rtol=1e-4):
+    # fp32 window sums in other orders: 1e-4 of the map's largest value
+    err = float((got.double() - want.double()).abs().max())
+    assert err <= rtol * float(want.abs().max()), err
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [
+    (2, 256, 256, 3), (2, 256, 256, 64), (2, 128, 128, 128), (2, 64, 64, 256),
+    (2, 32, 32, 512), (1, 1080, 1920, 3), (1, 540, 960, 128),
+    (1, 135, 240, 512), (1, 67, 120, 512), (1, 21, 21, 3), (2, 37, 53, 5),
+    (1, 40, 1920, 8),
+])
+def test_tsd_kernel_matches_plain(shape, dtype):
+    args, kw = _tsd_inputs(shape, dtype)
+    before = windowed_tsd.launches
+    got = windowed_tsd.windowed_tsd(*args, **kw)
+    torch.cuda.synchronize()
+    assert windowed_tsd.launches == before + 1
+    assert got.shape == (shape[0], shape[1] - 20, shape[2] - 20)
+    _assert_rel(got, windowed_tsd.windowed_tsd_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("case", ["ps0", "ps1", "unscaled", "zero_channel"])
+def test_tsd_kernel_edge_cases(case):
+    args, kw = _tsd_inputs((2, 45, 70, 12), torch.float32,
+                           ps_value={"ps0": 0.0, "ps1": 1.0}.get(case),
+                           scaled=case != "unscaled")
+    if case == "zero_channel":
+        fx = args[0].clone()
+        fx[..., 3] = 0
+        args = (fx, *args[1:])
+        kw["inv_x"] = 1 / fx.square().sum((1, 2)).sqrt().clamp_min(1e-12)
+    got = windowed_tsd.windowed_tsd(*args, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    _assert_rel(got, windowed_tsd.windowed_tsd_plain(*args, **kw))
+
+
+def test_tsd_kernel_repeats_bit_for_bit():
+    args, kw = _tsd_inputs((2, 100, 150, 40), torch.bfloat16)
+    assert torch.equal(windowed_tsd.windowed_tsd(*args, **kw),
+                       windowed_tsd.windowed_tsd(*args, **kw))
+
+
+def test_tsd_kernel_rejects_grad_layout_and_small_stages():
+    (fx, fy, ps, w), kw = _tsd_inputs((1, 30, 30, 8), torch.float32)
+    with pytest.raises(RuntimeError, match="no backward"):
+        windowed_tsd.windowed_tsd(fx.clone().requires_grad_(True), fy, ps, w)
+    with pytest.raises(ValueError, match="contiguous"):
+        windowed_tsd.windowed_tsd(fx.transpose(1, 2), fy.transpose(1, 2), ps, w)
+    with pytest.raises(ValueError, match="window"):
+        windowed_tsd.windowed_tsd(fx[:, :20].contiguous(), fy[:, :20].contiguous(),
+                                  ps, w)
+    with pytest.raises(ValueError, match="window"):
+        windowed_tsd.windowed_tsd(fx, fy, torch.zeros((1, 20, 20), device="cuda"), w,
+                                  window_size=11)
+
+
+def test_adists_forward_on_the_card_launches_the_kernel():
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.core import adists
+
+    model = resolve_vgg_params(seed=0).cuda()
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.rand((2, 64, 64, 3), generator=g, device="cuda")
+    y = (x + 0.1 * torch.rand(x.shape, generator=g, device="cuda")).clamp(0, 1)
+    cfg = ADISTSConfig(compute_dtype="bfloat16")
+    before = windowed_tsd.launches
+    with torch.no_grad():
+        got = adists.forward(model, x, y, cfg, as_loss=False)
+        assert windowed_tsd.launches == before + 3  # stages 0-2 fit at 64²
+        want = adists.forward(model, x, y, cfg.replace(fused_tsd=False), as_loss=False)
+    assert windowed_tsd.launches == before + 3
+    torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_default_frame_scorer_launches_the_moments_kernel():
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights, resolve_vgg_params
+    from nerf_qa_torch.config import DISTSConfig
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+
+    scorer = FrameScorer(resolve_vgg_params(seed=0),
+                         resolve_dists_weights(DISTSConfig()))
+    frames = torch.randint(0, 256, (2, 90, 120, 3), dtype=torch.uint8, device="cuda")
+    before = moments.launches
+    scores = scorer.score_frames(frames, frames.flip(0), batch_size=2)
+    assert moments.launches == before + 6
+    assert scores.shape == (2,)

@@ -90,6 +90,24 @@ def test_frame_scorer_full_size_float_frames(torch_model):
     assert s.shape == (2,) and (s > 0).all()
 
 
+def test_frame_scorer_default_cfg_is_the_serving_config(jax_params, torch_model,
+                                                        frames):
+    # the default takes the moments kernel's route: on CPU tensors that is
+    # the plain sums, with no launch; bf16 against JAX's bf16 scorer at 5e-3
+    from nerf_qa_torch.ops.cuda import moments
+
+    scorer = tvs.FrameScorer(torch_model, tdists.load_pretrained_weights(),
+                             resize_to=(64, 64), device="cpu")
+    assert scorer.cfg == TConfig(compute_dtype="bfloat16", stats_impl="kernel")
+    before = moments.launches
+    d, r = frames
+    got = scorer.score_frames(d, r, batch_size=5)
+    assert moments.launches == before
+    want = JFrameScorer(jax_params, jdists.load_pretrained_weights(),
+                        resize_to=(64, 64)).score_frames(d, r, batch_size=5)
+    assert float(np.abs(got - want).max()) <= 5e-3
+
+
 def test_frame_scorer_needs_a_device_without_cuda(torch_model, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="device='cpu'"):
@@ -187,7 +205,7 @@ def test_score_cli_image_pair_default_path_and_csv(pair_dirs, tmp_path, capsys):
     assert lines[0] == "frame,dists" and len(lines) == 2
 
 
-@pytest.mark.parametrize("extra", [["--metric", "adists"],
+@pytest.mark.parametrize("extra", [["--metric", "adists", "--dist", "clip.mov"],
                                    ["--nr", "--nr-ckpt", "."],  # an orbax dir
                                    ["--dist", "clip.mp4"]])
 def test_score_cli_unported_modes_exit(pair_dirs, extra):
