@@ -3,9 +3,9 @@
 Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
-ChannelNorm, windowed T/S) and holds each against its plain PyTorch
-version on the card. It drives three paths at full width and checks that
-each went through its kernels:
+ChannelNorm forward and backward, windowed T/S) and holds each against its
+plain PyTorch version on the card. It drives four paths at full width and
+checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
   resized to 256², bf16, moments kernel), plus two pairs at full
@@ -21,7 +21,15 @@ each went through its kernels:
   and at full resolution (two fp32 1080p pairs), windowed T/S kernel:
   scores against the plain T/S version, frames/s, a per-layer breakdown,
   the card's fp32 path against the CPU path, and one run of the score
-  CLI (``--metric both``) on PNG pairs.
+  CLI (``--metric both``) on PNG pairs;
+* NR v8 training through ``NRTrainer`` (the same full width, batch 4 of
+  device-generated 256² renders and ground truths, bf16 VGG, both decoder
+  dtypes): JBU and ChannelNorm forward and backward kernels; a falling
+  loss, one step's losses and decoder gradients against every plain
+  version, steps/s and frames/s in turns, a per-layer breakdown, the
+  profiler's top kernels, the card's fp32 step against the CPU path at a
+  small depth, and the training CLI (``tools.train_nr``) for an epoch, a
+  resume and ``score --nr`` of its checkpoint.
 
 It checks and times each kernel at its path's shapes against its plain
 version, with its bound and a PyTorch yardstick. Each phase prints one line; any failure
@@ -89,6 +97,39 @@ ADISTS_PLAIN_ATOL = 1e-5
 # sides run the same TF32 convolutions): the kernels' fp32 rounding
 # carried through the decoder; measured gaps 2.4e-7 to 3.6e-7
 NR_PLAIN_ATOL = 1e-5
+# NR training: NRTrainer at the CLI's and the trainer's default batch, on a
+# fixed batch at a learning rate that moves the loss within a few steps
+TRAIN_BATCH = 4
+TRAIN_LR = 3e-4
+TRAIN_COUNTED = 3  # steps of the counted run
+TRAIN_TIMED = 3  # steps per timed turn
+TRAIN_DTYPES = ("bfloat16", "float32")  # decoder: the CLI default, the parity path
+# launches per training step: the encoder's 4 JBU levels, the decoder's 19
+# ChannelNorms forward and 18 backward (the last stage's resample layer
+# makes the cascade's unused output: no gradient reaches it, so autograd
+# never calls its backward); the losses take eager statistics
+TRAIN_LAUNCHES = {"moments": 0, "jbu": 4, "channelnorm": NR_CN_PER_BATCH,
+                  "channelnorm_bwd": NR_CN_PER_BATCH - 1, "windowed_tsd": 0}
+# the training step's profiler ranges (NRModel.losses, NRTrainer.train_step)
+# and the device time launched outside them
+TRAIN_LAYERS = ("encode_ms", "decoder_fwd_ms", "losses_ms", "backward_ms",
+                "optimizer_ms", "other_ms")
+# ChannelNorm backward vs plain: dscale and dbias per channel within this
+# share of the sum of their terms' magnitudes (fp32 sums over up to 262k
+# rows in another order)
+CN_BWD_SUM_RTOL = 1e-5
+# one training step's forward and backward, kernels vs every plain version
+# from identical weights and generator state: the losses, and each decoder
+# gradient relative to its largest value. fp32 (true fp32): the kernels'
+# fp32 rounding carried through the step (measured on an H100: loss 0,
+# gradients 4.6e-6); bf16: a ChannelNorm or JBU output that rounds to the
+# other bf16 neighbour moves what follows by an ulp (loss 8.3e-7,
+# gradients 6.6e-3)
+TRAIN_PLAIN_LOSS_ATOL = {"float32": 1e-5, "bfloat16": 1e-4}
+TRAIN_PLAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
+# card fp32 training step vs the CPU path: each decoder gradient relative
+# to its largest value (the CPU parity tests' fp32 bar against JAX)
+TRAIN_CPU_GRAD_RTOL = 1e-3
 
 
 def phase(name: str, **fields) -> None:
@@ -199,6 +240,25 @@ def plain_versions(model):
             m.fused = True
 
 
+@contextlib.contextmanager
+def recording_bwd_calls(calls: list):
+    """Append (rows, C, gelu) of every ChannelNorm backward call inside
+    the block to ``calls``."""
+    from nerf_qa_torch.ops.cuda import channelnorm
+
+    real = channelnorm.channel_norm_act_bwd
+
+    def record(x, g, scale, bias, *, gelu=False, eps=1e-5):
+        calls.append((x.numel() // x.shape[-1], x.shape[-1], bool(gelu)))
+        return real(x, g, scale, bias, gelu=gelu, eps=eps)
+
+    channelnorm.channel_norm_act_bwd = record
+    try:
+        yield calls
+    finally:
+        channelnorm.channel_norm_act_bwd = real
+
+
 def channelnorm_calls(model, feats) -> list[tuple[int, int, bool]]:
     """(rows, C, gelu) of every ChannelNorm call of one decoder forward,
     read with forward hooks."""
@@ -226,7 +286,7 @@ def reset_launches() -> None:
     from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
 
     moments.launches = jbu.launches = channelnorm.launches = 0
-    windowed_tsd.launches = 0
+    channelnorm.bwd_launches = windowed_tsd.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
@@ -234,6 +294,7 @@ def launch_counts() -> dict[str, int]:
 
     return {"moments": moments.launches, "jbu": jbu.launches,
             "channelnorm": channelnorm.launches,
+            "channelnorm_bwd": channelnorm.bwd_launches,
             "windowed_tsd": windowed_tsd.launches}
 
 
@@ -332,7 +393,8 @@ def nr_path(vgg, gen):
     scores = scorer.score_frames(frames)
     counts = launch_counts()
     want = {"jbu": 4 * NR_BATCHES, "moments": 6 * NR_BATCHES,
-            "channelnorm": NR_CN_PER_BATCH * NR_BATCHES, "windowed_tsd": 0}
+            "channelnorm": NR_CN_PER_BATCH * NR_BATCHES, "channelnorm_bwd": 0,
+            "windowed_tsd": 0}
     if counts != want:
         raise AssertionError(f"NR launches {counts}, expected {want}")
     if scores.shape != (NR_BATCHES * NR_BATCH,) or not np.isfinite(scores).all():
@@ -361,6 +423,7 @@ def nr_path(vgg, gen):
         on_card = small.to("cuda")(x64, x56).cpu()
         small_counts = launch_counts()
         del small_counts["windowed_tsd"]  # not on the NR path
+        del small_counts["channelnorm_bwd"]  # serving runs no backward
         on_cpu = small_cpu(x64.cpu(), x56.cpu())
     if min(small_counts.values()) == 0:
         raise AssertionError(f"fp32 card path skipped a kernel: {small_counts}")
@@ -405,26 +468,13 @@ def nr_path(vgg, gen):
     cn_calls = channelnorm_calls(nr, feats)
     del toks, sem, pyramid, dfeats, predicted
 
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        nr_step(scorer, plain, r256, r224, "kernels")
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
+    prof = profile_step(lambda: nr_step(scorer, plain, r256, r224, "kernels"))
     phase("nr_path", batch=NR_BATCH, vit_depth=12, decoder_depths=[2, 2],
           launches=counts, launches_per_batch={k: v // NR_BATCHES for k, v in counts.items()},
           scores=scores.tolist(), kernels_vs_plain_max_gap=gap,
           plain_atol=NR_PLAIN_ATOL, card_fp32_vs_cpu_gap=cpu_gap,
           card_fp32_launches=small_counts, frames_per_s=fps,
-          layers_ms=layers, profiled_wall_ms=wall_ms, device_busy_ms=busy_ms,
-          device_idle_share=1 - busy_ms / wall_ms,
-          top_kernels=[[name[:160], ms] for name, ms in kernels[:12]],
+          layers_ms=layers, **prof,
           peak_mem_gib=peak)
     return nr, counts, cn_calls
 
@@ -678,9 +728,18 @@ def adists_layers(model, d_u8, r_u8, cfg) -> tuple[dict[str, float], torch.Tenso
     return layers, 1.0 - d_total
 
 
+def _on_device(e) -> bool:
+    """A kernel or copy on the card, not a user annotation's range (such
+    as the optimizer's step) that the profiler also lists there."""
+    return (e.device_type == torch.autograd.DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False))
+
+
 def profile_step(fn) -> dict:
     """Host wall time, device busy time and idle share, and the top
-    kernels by device time of one call under torch.profiler."""
+    kernels by device time of one call under torch.profiler. Busy time is
+    the union of the kernels' intervals, so kernels that overlap on
+    several streams count once."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
@@ -689,13 +748,54 @@ def profile_step(fn) -> dict:
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = sorted(((e.key, e.device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                      for e in prof.key_averages() if _on_device(e)),
                      key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    return {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
-            "device_idle_share": 1 - busy_ms / wall_ms,
-            "top_kernels": [[name[:160], ms] for name, ms in kernels[:12]]}
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in prof.events() if _on_device(e)):
+        busy_us += max(0.0, hi - max(lo, end))
+        end = max(end, hi)
+    busy_ms = busy_us / 1e3
+    out = {"profiled_wall_ms": wall_ms, "device_busy_ms": busy_ms,
+           "device_idle_share": 1 - busy_ms / wall_ms,
+           "top_kernels": [[name[:160], ms] for name, ms in kernels[:12]]}
+    return dict(out, **range_times(prof))
+
+
+def range_times(prof) -> dict:
+    """Per-layer times of a profiled call from the port's own profiler
+    ranges (``record_function("nr.*")`` in ``NRModel.losses`` and
+    ``NRTrainer.train_step``): each range's host span, and the device time
+    of the kernels, copies and sets launched inside it. A kernel belongs
+    to the range whose host span holds its launch call, on any thread
+    (autograd launches the backward from its own); what no range holds is
+    ``other_ms``. Empty when the call ran no such range."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/trace.json"
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"].split(".", 1)[1] + "_ms")
+             for e in events if e.get("cat") == "user_annotation"
+             and str(e.get("name", "")).startswith("nr.")]
+    if not spans:
+        return {}
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = dict.fromkeys([name for _, _, name in spans] + ["other_ms"], 0.0)
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        t = launched.get(e.get("args", {}).get("correlation"))
+        name = next((n for lo, hi, n in spans if t is not None and lo <= t <= hi),
+                    "other_ms")
+        device[name] += e["dur"] / 1e3
+    host = dict.fromkeys(device, 0.0)
+    for lo, hi, name in spans:
+        host[name] += (hi - lo) / 1e3
+    del host["other_ms"]
+    return {"layers_device_ms": device, "layers_host_ms": host}
 
 
 def adists_path(model, gen) -> dict[str, int]:
@@ -721,7 +821,7 @@ def adists_path(model, gen) -> dict[str, int]:
     reset_launches()
     scores = torch.cat([adists_step(model, d, r, cfg) for d, r in batches]).cpu()
     counts = launch_counts()
-    want = {"moments": 0, "jbu": 0, "channelnorm": 0,
+    want = {"moments": 0, "jbu": 0, "channelnorm": 0, "channelnorm_bwd": 0,
             "windowed_tsd": 5 * ADISTS_BATCHES}
     if counts != want:
         raise AssertionError(f"ADISTS launches {counts}, expected {want}")
@@ -894,6 +994,353 @@ def score_cli_run() -> dict:
     return result
 
 
+def cn_abs_terms(x, g, scale, bias, gelu: bool, eps: float = 1e-5):
+    """Per channel, the sums of |dy·x̂| and |dy| that dscale and dbias add
+    up: the scale of their rounding."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    xh = (xf - mean) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    dy = g.float()
+    if gelu:
+        t = xh * scale + bias
+        dy = dy * (0.5 * (1 + torch.erf(t * math.sqrt(0.5)))
+                   + t * torch.exp(-0.5 * t * t) / math.sqrt(2 * math.pi))
+    return (dy * xh).abs().sum(0), dy.abs().sum(0)
+
+
+def cn_bwd_inputs(rows: int, c: int, dtype, gen):
+    x = (1.5 * torch.randn((rows, c), generator=gen, device="cuda") + 0.3).to(dtype)
+    g = torch.randn((rows, c), generator=gen, device="cuda").to(dtype)
+    scale = 1 + 0.2 * torch.randn(c, generator=gen, device="cuda")
+    bias = 0.2 * torch.randn(c, generator=gen, device="cuda")
+    return x, g, scale, bias
+
+
+def cn_bwd_check(x, g, scale, bias, gelu: bool, what: str) -> float:
+    """The backward kernel against its plain version on the same inputs:
+    dx within CN_TOL, dscale and dbias within CN_BWD_SUM_RTOL of the sums
+    of their terms' magnitudes, and a second launch bit for bit equal.
+    Returns the largest absolute error."""
+    from nerf_qa_torch.ops.cuda import channelnorm
+
+    dx, ds, db = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=gelu)
+    pdx, pds, pdb = channelnorm.channel_norm_act_bwd_plain(x, g, scale, bias, gelu=gelu)
+    err = check_max(dx, pdx, *CN_TOL[x.dtype], f"{what} dx")
+    for got, want, mag, name in zip((ds, db), (pds, pdb),
+                                    cn_abs_terms(x, g, scale, bias, gelu),
+                                    ("dscale", "dbias")):
+        gap = (got.double() - want.double()).abs()
+        if bool((gap > CN_BWD_SUM_RTOL * mag.double()).any()):
+            i = int((gap - CN_BWD_SUM_RTOL * mag.double()).argmax())
+            raise AssertionError(f"{what} {name}[{i}]: {got[i].item()} vs "
+                                 f"{want[i].item()}, terms {mag[i].item()}")
+        err = max(err, float(gap.max()))
+    again = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=gelu)
+    if not (torch.equal(again[1], ds) and torch.equal(again[2], db)):
+        raise AssertionError(f"{what}: dscale / dbias do not repeat bit for bit")
+    return err
+
+
+def cn_bwd_bound(rows: int, c: int, gelu: bool, itemsize: int) -> tuple[float, str]:
+    """Least time for one backward call: x and g read once, dx written
+    once, scale and bias read and dscale and dbias written once; about 20
+    operations per element (statistics, x̂, the two row means, dx, the
+    column sums) and 15 more for the GELU's derivative."""
+    n_bytes = 3 * rows * c * itemsize + 4 * c * 4
+    ops = rows * c * (20 + 15 * gelu)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_cn_bwd(gen, train_calls: dict[str, list]) -> tuple[float, dict[str, dict]]:
+    """Phase cn_bwd_vs_plain: the ChannelNorm backward kernel against its
+    plain version on the forward's grid (every decoder width, 4099 rows,
+    GELU on and off, fp32 and bf16) and at every (rows, C, GELU) call of
+    one batch-4 training step in each decoder dtype, each call also timed
+    against the plain version, the bound and the autograd backward of
+    ``F.layer_norm`` + ``F.gelu`` (a yardstick the port never calls).
+    Returns the largest error and each dtype's per-step totals."""
+    from nerf_qa_torch.config import torch_dtype
+    from nerf_qa_torch.ops.cuda import channelnorm
+
+    worst = {}
+    for dt in (torch.float32, torch.bfloat16):
+        for c in CN_CHANNELS:
+            args = cn_bwd_inputs(CN_ROWS, c, dt, gen)
+            for gelu in (False, True):
+                key = f"({CN_ROWS}, {c}) gelu={gelu} {str(dt).split('.')[-1]}"
+                worst[key] = cn_bwd_check(*args, gelu, f"channelnorm bwd {key}")
+    totals = {}
+    for name, calls in train_calls.items():
+        dt = torch_dtype(name)
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        bound_by = set()
+        for (rows, c, gelu), count in sorted({k: calls.count(k) for k in calls}.items()):
+            x, g, scale, bias = cn_bwd_inputs(rows, c, dt, gen)
+            key = f"({rows}, {c}) gelu={gelu} {name}"
+            worst[key] = cn_bwd_check(x, g, scale, bias, gelu, f"channelnorm bwd {key}")
+            bound, by = cn_bwd_bound(rows, c, gelu, x.element_size())
+            bound_by.add(by)
+            xl = x.detach().requires_grad_(True)
+            wl = scale.to(dt).requires_grad_(True)
+            bl = bias.to(dt).requires_grad_(True)
+            y = F.layer_norm(xl, (c,), wl, bl, 1e-5)
+            y = F.gelu(y) if gelu else y
+            row = {"ms": time_ms(lambda: channelnorm.channel_norm_act_bwd(
+                       x, g, scale, bias, gelu=gelu)),
+                   "plain_ms": time_ms(lambda: channelnorm.channel_norm_act_bwd_plain(
+                       x, g, scale, bias, gelu=gelu), 5),
+                   # yardstick only: the port never calls it
+                   "library_ms": time_ms(lambda: torch.autograd.grad(
+                       y, (xl, wl, bl), g, retain_graph=True)),
+                   "bound_ms": bound}
+            for k in tot:
+                tot[k] += count * row[k]
+            phase("timing", kernel="channelnorm_bwd", rows=rows, c=c, gelu=gelu,
+                  calls_per_step=count, dtype=name, max_abs_err=worst[key],
+                  bound_by=by, **row)
+            del x, g, xl, y
+        totals[name] = dict(tot, bound_by="bytes" if bound_by == {"bytes"} else "operations")
+    phase("cn_bwd_vs_plain", rows=CN_ROWS, tolerances={
+        str(k).split(".")[-1]: v for k, v in CN_TOL.items()},
+        sum_rtol=CN_BWD_SUM_RTOL, max_abs_err=worst, per_step=totals)
+    return max(worst.values()), totals
+
+
+def make_trainer(vgg, weights, decoder_dtype: str, vit, jbu):
+    """NRTrainer at full width: ViT-S/14 depth 12 and the JBU stack as
+    given (seeded random), decoder depths 2 / 2 with dropout 0.2, the
+    CLI's bf16 VGG, a fresh decoder and Adam."""
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig, TrainConfig
+    from nerf_qa_torch.models.nr.model import NRModel
+    from nerf_qa_torch.train.nr_train import NRTrainer
+
+    cfg = NRModelConfig(decoder_dtype=decoder_dtype,
+                        dists=DISTSConfig(compute_dtype="bfloat16"))
+    model = NRModel(vgg, weights, cfg, vit=vit, jbu=jbu)
+    trainer = NRTrainer(model, TrainConfig(lr=TRAIN_LR, schedule="constant",
+                                           batch_size=TRAIN_BATCH), steps_per_epoch=1)
+    trainer.init(seed=0)
+    return trainer
+
+
+def step_grads(trainer, batch, gen_state) -> tuple[dict, dict]:
+    """The losses and decoder gradients of one training step's forward and
+    backward (no update), the dropout generator at ``gen_state``."""
+    model = trainer.model
+    trainer.generator.set_state(gen_state)
+    model.decoder.train().zero_grad(set_to_none=True)
+    with model.train_precision():
+        losses = model.losses(*batch, generator=trainer.generator)
+        losses["combined"].backward()
+    grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+             for n, p in model.decoder.named_parameters()}
+    model.decoder.zero_grad(set_to_none=True)
+    return {k: float(v.detach()) for k, v in losses.items()}, grads
+
+
+def nr_train_path(vgg, gen) -> tuple[dict[str, dict], dict[str, list]]:
+    """Phase nr_train_path: NRTrainer at full width on a fixed batch of 4
+    device-generated renders and ground truths, for both decoder dtypes:
+    launches per step, a falling finite loss, kernels against the plain
+    versions from identical weights and generator state, steps/s and
+    frames/s in turns, the profiler's top kernels, idle share and
+    per-layer breakdown (from the step's own ranges, ``range_times``) and
+    peak memory. Returns each dtype's launch counts and
+    ChannelNorm backward calls (rows, C, GELU) of one step."""
+    from nerf_qa_torch.compat.pretrained import (
+        resolve_dists_weights,
+        resolve_jbu_params,
+        resolve_vit_params,
+    )
+    from nerf_qa_torch.config import DISTSConfig
+    from nerf_qa_torch.ops.resize import resize_bilinear
+
+    weights = resolve_dists_weights(DISTSConfig(compute_dtype="bfloat16"))
+    vit = resolve_vit_params(depth=12, seed=0)
+    jbu = resolve_jbu_params(seed=1)
+    gt = torch.rand((TRAIN_BATCH, 256, 256, 3), generator=gen, device="cuda")
+    render = (gt + 0.05 * torch.randn(gt.shape, generator=gen, device="cuda")).clamp(0, 1)
+    batch = (gt, render, resize_bilinear(render, 224, 224))
+    all_counts, all_calls = {}, {}
+    for dtype in TRAIN_DTYPES:
+        trainer = make_trainer(vgg, weights, dtype, vit, jbu)
+        model = trainer.model
+
+        def det_loss():
+            with torch.no_grad():
+                return float(model.losses(*batch)["combined"])
+
+        loss_before = det_loss()
+        trainer.train_step(*batch)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        step_losses = [float(trainer.train_step(*batch)["combined"])
+                       for _ in range(TRAIN_COUNTED)]
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: v * TRAIN_COUNTED for k, v in TRAIN_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"NR training ({dtype}) launches {counts}, expected {want}")
+        if not all(math.isfinite(v) for v in step_losses):
+            raise AssertionError(f"NR training ({dtype}) losses {step_losses}")
+
+        # the kernels against every plain version, one step's forward and
+        # backward from identical weights and generator state
+        state = trainer.generator.get_state()
+        with recording_bwd_calls([]) as calls:
+            k_losses, k_grads = step_grads(trainer, batch, state)
+        if len(calls) != TRAIN_LAUNCHES["channelnorm_bwd"]:
+            raise AssertionError(f"NR training ({dtype}) ChannelNorm backward calls {calls}")
+        with plain_versions(model):
+            p_losses, p_grads = step_grads(trainer, batch, state)
+        loss_gap = max(abs(k_losses[k] - p_losses[k]) for k in k_losses)
+        grad_gaps = {n: float((k_grads[n] - p_grads[n]).abs().max())
+                     / max(float(p_grads[n].abs().max()), 1e-30) for n in p_grads}
+        worst = max(grad_gaps, key=grad_gaps.get)
+        if not (loss_gap <= TRAIN_PLAIN_LOSS_ATOL[dtype]
+                and grad_gaps[worst] <= TRAIN_PLAIN_GRAD_RTOL[dtype]):
+            raise AssertionError(f"NR training ({dtype}) kernels vs plain: loss gap "
+                                 f"{loss_gap}, gradient {worst} {grad_gaps[worst]}")
+        trainer.generator.set_state(state)
+
+        # steps/s and frames/s in turns
+        rates = {"kernels": [], "plain": []}
+        for v in ("kernels", "plain", "plain", "kernels"):
+            ctx = plain_versions(model) if v == "plain" else contextlib.nullcontext()
+            with ctx:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(TRAIN_TIMED):
+                    trainer.train_step(*batch)
+                end.record()
+                end.synchronize()
+            rates[v].append(TRAIN_TIMED / (start.elapsed_time(end) / 1e3))
+
+        prof = profile_step(lambda: trainer.train_step(*batch))
+        if set(prof.get("layers_device_ms", ())) != set(TRAIN_LAYERS):
+            raise AssertionError(f"NR training ({dtype}) profiler ranges {prof}")
+        loss_after = det_loss()
+        if not (math.isfinite(loss_after) and loss_after < loss_before):
+            raise AssertionError(f"NR training ({dtype}) loss {loss_before} -> {loss_after}")
+        phase("nr_train_path", decoder_dtype=dtype, vgg_dtype="bfloat16",
+              batch=TRAIN_BATCH, vit_depth=12, decoder_depths=[2, 2], dropout=0.2,
+              lr=TRAIN_LR, steps=trainer.step, launches=counts,
+              launches_per_step={k: v // TRAIN_COUNTED for k, v in counts.items()},
+              counted_step_losses=step_losses, det_loss_before=loss_before,
+              det_loss_after=loss_after, kernels_vs_plain_loss_gap=loss_gap,
+              kernels_vs_plain_worst_grad=[worst, grad_gaps[worst]],
+              loss_atol=TRAIN_PLAIN_LOSS_ATOL[dtype],
+              grad_rtol=TRAIN_PLAIN_GRAD_RTOL[dtype],
+              steps_per_s=rates, frames_per_s={k: [TRAIN_BATCH * r for r in v]
+                                               for k, v in rates.items()},
+              peak_mem_gib=peak, **prof)
+        all_counts[dtype], all_calls[dtype] = counts, calls
+        del trainer, model
+        torch.cuda.empty_cache()
+    return all_counts, all_calls
+
+
+def nr_train_cpu_parity(gen) -> None:
+    """Phase nr_train_cpu_parity: one deterministic fp32 training step's
+    forward and backward at a small depth (64² / 56², ViT depth 2, decoder
+    depths 1 / 2) on the card, every kernel on, against the port's CPU
+    path from the same weights: losses within SCORE_ATOL, decoder
+    gradients per tensor within TRAIN_CPU_GRAD_RTOL of their largest
+    value."""
+    from nerf_qa_torch.compat.pretrained import (
+        resolve_dists_weights,
+        resolve_jbu_params,
+        resolve_vgg_params,
+        resolve_vit_params,
+    )
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+    from nerf_qa_torch.models.nr.model import NRModel
+    from nerf_qa_torch.ops.resize import resize_bilinear
+
+    cfg = NRModelConfig(transformer_decoder_depth=1, decoder_dtype="float32",
+                        dists=DISTSConfig(compute_dtype="float32"))
+    decoder = init_lecun_normal_(NRDecoder(cfg, qkv_bias=True, layer_scale=True),
+                                 torch.Generator().manual_seed(3))
+    small = NRModel(resolve_vgg_params(seed=0), resolve_dists_weights(cfg.dists), cfg,
+                    vit=resolve_vit_params(depth=2, grid_size=4, seed=0),
+                    jbu=resolve_jbu_params(seed=1), decoder=decoder,
+                    render_size=64, sem_size=56)
+    on_cpu = copy.deepcopy(small)
+    gt = torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    render = (gt + 0.05 * torch.randn(gt.shape, generator=gen, device="cuda")).clamp(0, 1)
+    batch = (gt, render, resize_bilinear(render, 56, 56))
+    out = {}
+    for name, model, args in (("card", small.to("cuda"), batch),
+                              ("cpu", on_cpu, [t.cpu() for t in batch])):
+        reset_launches()
+        model.decoder.train()
+        with model.train_precision():
+            losses = model.losses(*args)
+            losses["combined"].backward()
+        out[name] = ({k: float(v) for k, v in losses.items()},
+                     {n: torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+                      for n, p in model.decoder.named_parameters()}, launch_counts())
+    (kl, kg, counts), (cl, cg, cpu_counts) = out["card"], out["cpu"]
+    loss_gap = max(abs(kl[k] - cl[k]) for k in kl)
+    grad_gaps = {n: float((kg[n] - cg[n]).abs().max()) / max(float(cg[n].abs().max()), 1e-30)
+                 for n in cg}
+    worst = max(grad_gaps, key=grad_gaps.get)
+    if min(counts[k] for k in ("jbu", "channelnorm", "channelnorm_bwd")) == 0 or any(
+            cpu_counts.values()):
+        raise AssertionError(f"card launches {counts}, CPU launches {cpu_counts}")
+    if loss_gap > SCORE_ATOL or grad_gaps[worst] > TRAIN_CPU_GRAD_RTOL:
+        raise AssertionError(f"NR training card vs CPU: loss gap {loss_gap}, "
+                             f"gradient {worst} {grad_gaps[worst]}")
+    phase("nr_train_cpu_parity", hw=[64, 56], vit_depth=2, decoder_depths=[1, 2],
+          losses=kl, loss_gap=loss_gap, worst_grad=[worst, grad_gaps[worst]],
+          grad_rtol=TRAIN_CPU_GRAD_RTOL, launches=counts)
+
+
+def train_cli_run() -> None:
+    """Phase train_cli: ``tools.train_nr.main`` on a synthetic NR tree in a
+    temporary directory on the card (full width, batch 4, one epoch with
+    a validation pass), a resume to a second epoch, then ``score --nr`` of
+    the final checkpoint."""
+    import io
+
+    from nerf_qa_torch.tools import score, train_nr
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_nr_tree
+
+    with tempfile.TemporaryDirectory() as tmp:
+        data, run = f"{tmp}/data", f"{tmp}/run"
+        csv = make_nr_tree(data, scenes=("chair", "drums", "room"), methods=("nerfacto",),
+                           frames=4, hw=(96, 128))
+        common = ["--data-dir", data, "--scores-csv", csv, "--output-dir", run,
+                  "--batch-size", str(TRAIN_BATCH), "--num-workers", "2",
+                  "--holdout-scenes", "room", "--test-every", "1"]
+        out = io.StringIO()
+        reset_launches()
+        with contextlib.redirect_stdout(out):
+            rc1 = train_nr.main(common + ["--epochs", "1", "--checkpoint-every", "1"])
+        counts = launch_counts()
+        with contextlib.redirect_stdout(out):
+            rc2 = train_nr.main(common + ["--epochs", "2", "--resume"])
+            rc3 = score.main(["--nr", "--nr-ckpt", f"{run}/ckpt", "--dist",
+                              f"{data}/room/nerfacto/color", "--json", "--batch-size", "4"])
+        text = out.getvalue()
+    result = json.loads(text.strip().splitlines()[-1])
+    ok = (rc1 == rc2 == rc3 == 0 and "resumed from epoch 1" in text
+          and result["nr"]["frames"] == 4 and math.isfinite(result["nr"]["video_score"])
+          and min(counts[k] for k in ("jbu", "channelnorm", "channelnorm_bwd")) > 0)
+    if not ok:
+        raise AssertionError(f"train CLI: rc {rc1, rc2, rc3}, launches {counts}, "
+                             f"output {text[-2000:]}")
+    phase("train_cli", argv=" ".join(common[6:] + ["--epochs", "1|2"]), launches=counts,
+          epochs=[line for line in text.splitlines() if line.startswith(("epoch", "val"))],
+          score_nr=result)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -1039,21 +1486,8 @@ def main() -> int:
     layers = dict(zip(("resize_ms", "vgg_ms", "moments_ms", "score_ms"),
                       (a.elapsed_time(b) for a, b in zip(marks, marks[1:]))))
     del x, y, both, stats
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        scorer.score_batch(d, r)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    kernels = sorted(((e.key, e.device_time_total / 1e3)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     key=lambda kv: -kv[1])
-    busy_ms = sum(ms for _, ms in kernels)
-    phase("breakdown", batch=BATCH, **layers, profiled_wall_ms=wall_ms,
-          device_busy_ms=busy_ms, device_idle_share=1 - busy_ms / wall_ms,
-          top_kernels=[[name[:160], ms] for name, ms in kernels[:12]])
+    phase("breakdown", batch=BATCH, **layers,
+          **profile_step(lambda: scorer.score_batch(d, r)))
     del dist, ref, d, r
 
     # 5. full resolution: stage 1 of the kernel at 2.07M pixels
@@ -1123,6 +1557,14 @@ def main() -> int:
     adists_cpu_parity(gen)
     score_cli_run()
 
+    # 9. NR training at full width in both decoder dtypes, then the
+    # ChannelNorm backward kernel at its grid and at the path's shapes,
+    # the card's fp32 step against the CPU path, and the training CLI
+    train_counts, train_calls = nr_train_path(model, gen)
+    cn_bwd_err, cn_bwd_rows = check_cn_bwd(gen, train_calls)
+    nr_train_cpu_parity(gen)
+    train_cli_run()
+
     entries = [{
         "name": "moments",
         "route": "cuda",
@@ -1161,6 +1603,20 @@ def main() -> int:
         "replaces": "nerf_qa_tpu/ops/pallas/windowed_tsd.py:68",
         "launches": adists_counts["windowed_tsd"],
         "max_abs_err": tsd_err,
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    })
+    row = cn_bwd_rows["bfloat16"]  # the CLI's default decoder dtype
+    entries.append({
+        "name": "channelnorm_bwd",
+        "route": "cuda",
+        "source": "nerf_qa_torch/csrc/channelnorm.cu",
+        "replaces": "nerf_qa_tpu/ops/pallas/channelnorm.py:90",
+        "launches": sum(c["channelnorm_bwd"] for c in train_counts.values()),
+        "max_abs_err": cn_bwd_err,
         "ms": row["ms"],
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],

@@ -11,7 +11,11 @@ buffers, ImageNet ``mean`` / ``std``), DINOv2's ViT keys, FeatUp's
 upsampler keys and the reference NR decoder keys of
 ``export_nr_state_dict``. Each loads with ``strict=True``; the JAX
 package's importers (``compat/torch_{vit,featup,nr}.py``) read them back.
-It imports nothing of JAX: callers hand it numpy.
+The decoder mapping only moves, transposes and flips entries, so it maps
+any pytree shaped like the decoder's params (a gradient, optax Adam's
+``mu`` and ``nu``) as it maps the weights: ``nr_decoder_tensors_from_jax``
+and ``adam_state_dict_from_jax``. It imports nothing of JAX: callers hand
+it numpy.
 """
 from __future__ import annotations
 
@@ -161,17 +165,23 @@ def _conv_layer(sd: dict, prefix: str, layer: Mapping[str, Any]) -> None:
     sd[f"{prefix}.norm_layer.norm.bias"] = _t(layer["ChannelNorm_0"]["bias"])
 
 
-def nr_decoder_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+def nr_decoder_state_dict_from_jax(params: Mapping[str, Any],
+                                   qkv_bias: bool | None = None,
+                                   layer_scale: bool | None = None
+                                   ) -> dict[str, torch.Tensor]:
     """JAX v7/v8 ``NRDecoder`` params (numpy) -> the reference decoder
     ``state_dict`` (``transformer_decoder.{i}``, ``trans2sem``,
     ``decoder.{i}.block.{j}``, ``decoder.{i}.upsample_layer``): the keys
     and values ``compat/export_torch.export_nr_state_dict`` writes.
-    ``NRDecoder.from_state_dict`` loads it with ``strict=True``."""
+    ``NRDecoder.from_state_dict`` loads it with ``strict=True``. By default
+    the blocks' qkv bias and LayerScale are written when they differ from
+    the reference's implicit zero bias and unit gamma; True writes them
+    always, False never."""
     sd: dict[str, torch.Tensor] = {}
     n_trans = sum(1 for k in params if k.startswith("trans") and k != "trans2sem")
     for i in range(n_trans):
         _block(sd, f"transformer_decoder.{i}", params[f"trans{i}"],
-               qkv_bias=None, layer_scale=None)
+               qkv_bias=qkv_bias, layer_scale=layer_scale)
     if "trans2sem" in params:
         _conv_layer(sd, "trans2sem", params["trans2sem"])
     n_refine = sum(1 for k in params if k.startswith("refine"))
@@ -187,3 +197,34 @@ def nr_decoder_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch
             _conv_layer(sd, f"decoder.{i}.block.{j}", stage[name])
         _conv_layer(sd, f"decoder.{i}.upsample_layer", tail)
     return sd
+
+
+def nr_decoder_tensors_from_jax(tree: Mapping[str, Any],
+                                like: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+    """A pytree shaped like the JAX decoder's params (a gradient, Adam's
+    ``mu`` or ``nu``), numpy, -> tensors under the keys of the decoder
+    ``state_dict`` ``like``, moved and flipped as the weights are."""
+    return nr_decoder_state_dict_from_jax(
+        tree, qkv_bias="transformer_decoder.0.attn.qkv.bias" in like,
+        layer_scale="transformer_decoder.0.ls1.gamma" in like)
+
+
+def adam_state_dict_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
+                             decoder: torch.nn.Module,
+                             optimizer: torch.optim.Optimizer) -> dict:
+    """optax Adam's state (``ScaleByAdamState``'s ``count``, ``mu``, ``nu``,
+    numpy) -> a ``state_dict`` for ``optimizer``, a ``torch.optim.Adam``
+    built over ``decoder.parameters()``: ``exp_avg`` = mu, ``exp_avg_sq`` =
+    nu and ``step`` = count for each parameter, in the decoder's parameter
+    order. Load it with ``optimizer.load_state_dict``."""
+    like = decoder.state_dict()
+    m = nr_decoder_tensors_from_jax(mu, like)
+    v = nr_decoder_tensors_from_jax(nu, like)
+    names = [name for name, _ in decoder.named_parameters()]
+    if set(names) != set(m):
+        raise ValueError(f"Adam state keys {sorted(set(m) ^ set(names))} do not "
+                         "match the decoder's parameters")
+    state = {i: {"step": torch.tensor(float(np.asarray(count))),
+                 "exp_avg": m[name], "exp_avg_sq": v[name]}
+             for i, name in enumerate(names)}
+    return {"state": state, "param_groups": optimizer.state_dict()["param_groups"]}

@@ -12,6 +12,9 @@ reference-layout NR checkpoint. Resolution order:
 4. random weights with a loud warning (same FLOPs; quality numbers
    meaningless), from a seeded ``torch.Generator``.
 
+The NR decoder and its α/β come from a reference-layout ``.pth`` or from a
+port training checkpoint (``load_nr_torch_file``).
+
 Formats: torch ``.pt`` / ``.pth`` / ``.bin`` load natively (a torchvision
 VGG16, its ``features``, or a reference DISTS / FR / NR state dict), and
 ``.npz`` in the JAX package's format (``stageK.{i}.kernel`` HWIO and
@@ -30,6 +33,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from nerf_qa_torch.compat import checkpoint
 from nerf_qa_torch.compat.from_jax import reference_buffers, vgg_state_dict_from_jax
 from nerf_qa_torch.config import DISTSConfig
 from nerf_qa_torch.core import dists
@@ -268,18 +272,41 @@ def resolve_jbu_params(path: str | None = None, dim: int = 384,
     return init_lecun_normal_(model, torch.Generator().manual_seed(seed))
 
 
+def _nr_checkpoint_file(path: str) -> str | None:
+    """The ``state.pt`` of a port training checkpoint directory: ``path``
+    itself (a ``step_<N>`` directory) or its latest step; None when
+    ``path`` holds neither."""
+    for d in (path, checkpoint.step_dir(path, checkpoint.latest_step(path) or 0)):
+        f = os.path.join(d, checkpoint.STATE_FILE)
+        if os.path.isfile(f):
+            return f
+    return None
+
+
 def load_nr_torch_file(path: str):
     """A reference-layout NR ``.pth`` (train-nr.py's saved state, or the
-    JAX package's compat/export_torch.py ``--kind nr`` output) ->
-    (decoder state_dict, DISTS α/β arrays or None). A JAX orbax checkpoint
+    JAX package's compat/export_torch.py ``--kind nr`` output), or a port
+    training checkpoint (``tools/train_nr.py``'s ``ckpt`` directory, one of
+    its ``step_<N>`` directories or their ``state.pt``) -> (decoder
+    state_dict, DISTS α/β arrays or None). A JAX orbax checkpoint
     directory cannot be read without JAX and raises."""
     if os.path.isdir(path):
-        raise ValueError(
-            f"{path} is a directory (a JAX orbax checkpoint?): reading orbax "
-            "checkpoints is not yet ported (ROADMAP Queue 1 item 11). The port "
-            "reads reference-layout torch .pth files; export one with the JAX "
-            "package's nerf_qa_tpu/compat/export_torch.py --kind nr")
+        state_file = _nr_checkpoint_file(path)
+        if state_file is None:
+            raise ValueError(
+                f"{path} is a directory without a port checkpoint (a JAX orbax "
+                "checkpoint?): reading orbax checkpoints is not yet ported "
+                "(ROADMAP Queue 1 item 11). The port reads reference-layout "
+                "torch .pth files and its own training checkpoints; export a "
+                "JAX one with the JAX package's nerf_qa_tpu/compat/"
+                "export_torch.py --kind nr")
+        path = state_file
     sd = _torch_load(path)
+    if isinstance(sd, Mapping) and isinstance(sd.get("decoder"), Mapping):
+        ab = sd.get("dists_alpha_beta")
+        alpha_beta = None if ab is None else tuple(
+            torch.as_tensor(ab[k]).reshape(-1).float().numpy() for k in ("alpha", "beta"))
+        return {k: torch.as_tensor(v).float() for k, v in sd["decoder"].items()}, alpha_beta
     if not isinstance(sd, Mapping):
         raise ValueError(f"{path}: expected a state_dict, got {type(sd).__name__}")
     sd = sd.get("state_dict", sd)

@@ -1,8 +1,8 @@
 """Explicit config dataclasses, and the device rule of every entry point.
 
 Counterpart of ``nerf_qa_tpu/config.py`` (a copy, not an import). This
-carries ``DISTSConfig``, ``ADISTSConfig`` and ``NRModelConfig``; the
-other configs come with their slices.
+carries ``DISTSConfig``, ``ADISTSConfig``, ``NRModelConfig`` and
+``TrainConfig``; ``FRModelConfig`` comes with FR training.
 """
 from __future__ import annotations
 
@@ -101,8 +101,9 @@ class NRModelConfig:
     # ADISTS map vs the decoded -log10 map, nerf_nr_qa_prep_4.py:101-135)
     score_map_coeff: float = 1.0
     # execution knobs (no reference equivalent)
-    decoder_dtype: str = "float32"  # 'bfloat16' is not yet ported
-    remat: bool = False  # activation checkpointing; training only
+    decoder_dtype: str = "float32"  # 'bfloat16': bf16 decoder convs and
+    # products with fp32 master weights and optimizer state (cast at use)
+    remat: bool = False  # activation checkpointing: not ported, raises
     dists: DISTSConfig = field(default_factory=DISTSConfig)
 
     @property
@@ -122,6 +123,33 @@ class NRModelConfig:
         return "channel" if self.version >= 7 else "batch"
 
     def replace(self, **kw) -> "NRModelConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer/schedule settings shared by FR/NR trainers
+    (run_final.py:54-75, train-nr.py:180-203)."""
+
+    lr: float = 1e-4
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    epochs: int = 10
+    batch_size: int = 32  # settings_fr.py DEVICE_BATCH_SIZE=32; NR uses 4
+    optimizer: str = "adam"
+    schedule: str = "exp"  # 'exp' | 'cosine' | 'constant'
+    gamma: float = 0.95  # ExponentialLR decay (run_final.py:264)
+    warmup_epochs: int = 1
+    entropy_loss_coeff: float = 0.0
+    project_weights: bool = False
+    seed: int = 0
+    folds: int = 4  # GroupKFold CV (run_final.py:231-239)
+    # accumulate gradients over N micro-batches before each optimizer step
+    # (run.py:138-167 accumulates a whole epoch, weighted 1/frame_count)
+    grad_accum_steps: int = 0
+
+    def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
 
 

@@ -17,6 +17,14 @@ train-nr.py checkpoint loads with ``strict=True``.
 
 Public tensors are NHWC as in the JAX package; inside, maps are NCHW in
 channels_last memory.
+
+``decoder_dtype='bfloat16'`` computes the transformer mixer, ``trans2sem``
+and the RefineUp convs in bf16 with fp32 master weights, as
+decoder.py:281-309, 382 do: the mixer's residual stream and
+``trans_decode`` stay fp32, each RefineUp stage casts its blended input to
+bf16, and the predicted features come out in bf16. In training mode the
+Dropout2d layers draw from the generator passed to ``forward``.
+``cfg.remat`` (activation checkpointing) is not ported: it raises.
 """
 from __future__ import annotations
 
@@ -25,7 +33,7 @@ from typing import Sequence
 import torch
 from torch import nn
 
-from nerf_qa_torch.config import NRModelConfig
+from nerf_qa_torch.config import NRModelConfig, torch_dtype
 from nerf_qa_torch.models.nr.layers import (
     ConvLayer,
     ConvTransposeLayer,
@@ -64,30 +72,37 @@ class RefineUp(nn.Module):
 
     def __init__(self, input_chns: int, output_chns: int, feature_chns: int,
                  depth: int = 2, upsample: bool = True, dropout_rate: float = 0.0,
-                 refine_scale1: float = 1.0, refine_scale2: float = 0.1):
+                 refine_scale1: float = 1.0, refine_scale2: float = 0.1,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.feature_chns = feature_chns
         self.refine_scale1 = refine_scale1
         self.refine_scale2 = refine_scale2
+        self.dtype = dtype
         # depth >= 2: GELU on every layer but the last; depth 1: no GELU
         acts = [True] * (depth - 1) + [False] if depth >= 2 else [False] * depth
         self.block = nn.Sequential(*(
             ConvLayer(input_chns, input_chns, activation=a,
-                      dropout_rate=dropout_rate) for a in acts))
+                      dropout_rate=dropout_rate, dtype=dtype) for a in acts))
         tail = ConvTransposeLayer if upsample else ConvLayer
         self.upsample_layer = tail(input_chns, output_chns, activation=False,
-                                   dropout_rate=dropout_rate)
+                                   dropout_rate=dropout_rate, dtype=dtype)
 
     def forward(self, input_feats: torch.Tensor, dists_feat: torch.Tensor,
-                sem_feat: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+                sem_feat: torch.Tensor, generator: torch.Generator | None = None
+                ) -> tuple[torch.Tensor, torch.Tensor]:
         """input_feats NCHW (channels_last); dists_feat and sem_feat NHWC.
         Returns (the next stage's NCHW map, the predicted DISTS feature:
-        an NHWC view of the pre-resample map's leading channels)."""
+        an NHWC view of the pre-resample map's leading channels, in the
+        stage's dtype)."""
         guide = torch.cat([dists_feat.float(), sem_feat.float()], dim=-1)
-        x = input_feats * self.refine_scale1 + nchw(guide)
-        feature_map = self.refine_scale2 * self.block(x) + x
+        x = (input_feats * self.refine_scale1 + nchw(guide)).to(self.dtype)
+        h = x
+        for layer in self.block:
+            h = layer(h, generator)
+        feature_map = self.refine_scale2 * h + x
         pred = nhwc(feature_map[:, : self.feature_chns])
-        return self.upsample_layer(feature_map), pred
+        return self.upsample_layer(feature_map, generator), pred
 
 
 class NRDecoder(nn.Module):
@@ -109,21 +124,27 @@ class NRDecoder(nn.Module):
             raise NotImplementedError(
                 "the score-regression head (ScoreRegHead) is not yet ported "
                 "(ROADMAP Queue 1 item 11)")
-        if cfg.decoder_dtype != "float32":
+        if cfg.remat:
             raise NotImplementedError(
-                f"decoder_dtype={cfg.decoder_dtype!r}: only the fp32 decoder "
-                "is ported (ROADMAP Queue 1 item 11)")
+                "remat=True (activation checkpointing of the RefineUp stages) "
+                "is not ported: torch.utils.checkpoint restores only the "
+                "global RNGs, so the explicit-generator dropout would draw a "
+                "new mask on recompute (ROADMAP Queue 1 item 11)")
+        if cfg.decoder_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"decoder_dtype={cfg.decoder_dtype!r}: 'float32' "
+                             "or 'bfloat16'")
         self.cfg = cfg
+        dtype = torch_dtype(cfg.decoder_dtype)
         self.sem_dim = sem_dim
         self.dists_chns = tuple(dists_chns)
         mix_dim = self.dists_chns[-1] + sem_dim
         self.transformer_decoder = nn.ModuleList(
             TransformerBlock(mix_dim, 8, layer_scale_init=1.0 if layer_scale else None,
-                             qkv_bias=qkv_bias)
+                             qkv_bias=qkv_bias, dtype=dtype)
             for _ in range(cfg.transformer_decoder_depth))
         if cfg.transformer_decoder_depth > 0:
             self.trans2sem = ConvLayer(mix_dim, sem_dim, activation=True,
-                                       dropout_rate=cfg.dropout_rate)
+                                       dropout_rate=cfg.dropout_rate, dtype=dtype)
         rev = list(reversed(self.dists_chns))  # [512, 512, 256, 128, 64, 3]
         num_upscales = len(rev) - 2
         self.decoder = nn.ModuleList()
@@ -138,6 +159,7 @@ class NRDecoder(nn.Module):
                 dropout_rate=cfg.dropout_rate,
                 refine_scale1=cfg.refine_scale1,
                 refine_scale2=cfg.refine_scale2,
+                dtype=dtype,
             ))
 
     @classmethod
@@ -153,12 +175,15 @@ class NRDecoder(nn.Module):
         return model
 
     def forward(self, dists_feats: Sequence[torch.Tensor], sem_feats: torch.Tensor,
-                sem_pyramid: Sequence[torch.Tensor]):
+                sem_pyramid: Sequence[torch.Tensor],
+                generator: torch.Generator | None = None):
         """dists_feats: the render's 6-level NHWC DISTS pyramid [x, s1..s5]
         (fp32 or bf16); sem_feats (N, gh, gw, D); sem_pyramid: the 6-level
-        JBU pyramid. Returns (predicted GT DISTS features in [x, s1..s5]
-        order as fp32 NHWC views, None) — the second slot is the
-        score-regression map of the generations that have one."""
+        JBU pyramid; generator: the dropout generator of a training step
+        (None: no dropout). Returns (predicted GT DISTS features in
+        [x, s1..s5] order as NHWC views in the decoder's dtype, None) — the
+        second slot is the score-regression map of the generations that
+        have one."""
         cfg = self.cfg
         top = dists_feats[-1].float()
         n, gh, gw, _ = top.shape
@@ -169,12 +194,13 @@ class NRDecoder(nn.Module):
             for blk in self.transformer_decoder:
                 tokens = blk(tokens)
             mixed = self.trans2sem(nchw(
-                encoder_feats + cfg.refine_scale3 * tokens.reshape(n, gh, gw, -1)))
-            trans_decode = trans_decode + cfg.refine_scale4 * nhwc(mixed)
+                encoder_feats + cfg.refine_scale3 * tokens.reshape(n, gh, gw, -1)),
+                generator)
+            trans_decode = trans_decode + cfg.refine_scale4 * nhwc(mixed).float()
         feature_map = nchw(torch.cat([top, trans_decode], dim=-1))
         predicted = []
         for i, stage in enumerate(self.decoder):
             feature_map, pred = stage(feature_map, dists_feats[len(dists_feats) - 1 - i],
-                                      sem_pyramid[i])
+                                      sem_pyramid[i], generator)
             predicted.append(pred)
         return list(reversed(predicted)), None

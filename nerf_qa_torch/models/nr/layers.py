@@ -17,6 +17,14 @@ Layout: the conv layers take and return NCHW tensors, kept in
 as contiguous NHWC rows without a copy. The BatchNorm blocks of v1-v6 and
 the sub-pixel transposed conv are not yet ported (ROADMAP Queue 1
 item 11).
+
+Precision (``dtype``, the JAX layers' ``dtype``): bf16 computation with
+fp32 master weights cast at use. Convolutions and Dense layers take and
+give bf16 (layers.py:131-197), the attention logits and softmax run in
+fp32 and are cast back (layers.py:238-246), LayerNorms, LayerScale and the
+residual stream stay fp32 (layers.py:263-272), and ChannelNorm keeps fp32
+statistics with its output in the input's dtype. The casts are written
+out; ``torch.autocast`` would place them elsewhere.
 """
 from __future__ import annotations
 
@@ -37,9 +45,11 @@ class ChannelNorm(nn.Module):
     in when asked. Statistics in fp32; output in the input's dtype.
     ``norm`` holds the reference's ``weight`` / ``bias``.
 
-    CUDA tensors take the ChannelNorm kernel (``ops/cuda/channelnorm.py``),
-    CPU tensors its plain version; ``fused = False`` forces the plain
-    version, the reference the kernel is held against."""
+    CUDA tensors take the ChannelNorm kernels (``ops/cuda/channelnorm.py``:
+    the forward kernel, and the backward kernel when autograd needs a
+    gradient), CPU tensors the plain version with autograd's gradient;
+    ``fused = False`` forces the plain version, forward and backward, the
+    reference the kernels are held against."""
 
     def __init__(self, features: int, eps: float = 1e-5):
         super().__init__()
@@ -59,53 +69,95 @@ class ChannelNorm(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+class Dropout2d(nn.Module):
+    """Channel dropout (torch Dropout2d semantics, layers.py:104-116):
+    whole channels per sample are zeroed and the kept values scaled by
+    1/keep. The mask is drawn from the explicit ``generator`` the caller
+    passes (on the map's device), never from torch's global RNG; with no
+    generator, in eval mode or at rate 0 it is the identity (the JAX
+    module's ``deterministic``)."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        """NCHW in, NCHW out."""
+        if self.rate == 0.0 or generator is None or not self.training:
+            return x
+        keep = 1.0 - self.rate
+        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
+                       device=x.device)
+        return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
+                                                           device=x.device))
+
+
+def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A Dense layer in ``dtype``: input, weight and bias cast at use."""
+    return F.linear(x.to(dtype), layer.weight.to(dtype), layer.bias.to(dtype)
+                    if layer.bias is not None else None)
+
+
 class ConvLayer(nn.Module):
     """Dropout2d -> 3x3 conv -> ChannelNorm (+GELU when ``activation``)
-    (model_nr_v8.py:17-33). Dropout2d is torch's: whole channels per
-    sample, identity in eval mode."""
+    (model_nr_v8.py:17-33), computed in ``dtype``."""
 
     def __init__(self, in_chns: int, out_chns: int, activation: bool = True,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout = nn.Dropout2d(dropout_rate)
+        self.dropout = Dropout2d(dropout_rate)
         self.conv = nn.Conv2d(in_chns, out_chns, 3, padding=1)
         self.norm_layer = ChannelNorm(out_chns)
         self.activation = activation
+        self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm_layer(self.conv(self.dropout(x)), gelu=self.activation)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.dropout(x.to(self.dtype), generator)
+        x = F.conv2d(x, self.conv.weight.to(self.dtype),
+                     self.conv.bias.to(self.dtype), padding=1)
+        return self.norm_layer(x, gelu=self.activation)
 
 
 class ConvTransposeLayer(nn.Module):
     """Dropout2d -> exact-2x transposed conv -> ChannelNorm (+GELU)
     (model_nr_v8.py:35-51: ConvTranspose2d(k=3, s=2, p=1,
-    output_padding=1)). The JAX package reproduces this alignment with
-    padding ((1, 2), (1, 2)) and a spatially flipped kernel; the weight
-    bridge undoes the flip (compat/from_jax.py)."""
+    output_padding=1)), computed in ``dtype``. The JAX package reproduces
+    this alignment with padding ((1, 2), (1, 2)) and a spatially flipped
+    kernel; the weight bridge undoes the flip (compat/from_jax.py)."""
 
     def __init__(self, in_chns: int, out_chns: int, activation: bool = False,
-                 dropout_rate: float = 0.0):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.dropout = nn.Dropout2d(dropout_rate)
+        self.dropout = Dropout2d(dropout_rate)
         self.conv = nn.ConvTranspose2d(in_chns, out_chns, 3, stride=2,
                                        padding=1, output_padding=1)
         self.norm_layer = ChannelNorm(out_chns)
         self.activation = activation
+        self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.norm_layer(self.conv(self.dropout(x)), gelu=self.activation)
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None) -> torch.Tensor:
+        x = self.dropout(x.to(self.dtype), generator)
+        x = F.conv_transpose2d(x, self.conv.weight.to(self.dtype),
+                               self.conv.bias.to(self.dtype), stride=2,
+                               padding=1, output_padding=1)
+        return self.norm_layer(x, gelu=self.activation)
 
 
 class Mlp(nn.Module):
-    """Transformer MLP: fc1 -> exact GELU -> fc2 (nerf_qa/layers/mlp.py)."""
+    """Transformer MLP: fc1 -> exact GELU -> fc2 (nerf_qa/layers/mlp.py),
+    in ``dtype``."""
 
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.fc1 = nn.Linear(dim, hidden)
         self.fc2 = nn.Linear(hidden, dim)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.fc2(F.gelu(self.fc1(x)))
+        return _linear(self.fc2, F.gelu(_linear(self.fc1, x, self.dtype)), self.dtype)
 
 
 class LayerScale(nn.Module):
@@ -120,24 +172,29 @@ class LayerScale(nn.Module):
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention as explicit products with an fp32 softmax
-    (layers.py:218-246): q is scaled before q·kᵀ, as the JAX package
-    does."""
+    """Multi-head self-attention as explicit products (layers.py:218-246):
+    q is scaled before q·kᵀ, as the JAX package does; the projections run
+    in ``dtype``, the logits, softmax and attention-weighted sum in fp32
+    (the products of ``dtype`` values accumulated in fp32, JAX's
+    ``preferred_element_type``), each cast back to ``dtype``."""
 
-    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True):
+    def __init__(self, dim: int, num_heads: int, qkv_bias: bool = True,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
         self.num_heads = num_heads
         self.qkv = nn.Linear(dim, dim * 3, bias=qkv_bias)
         self.proj = nn.Linear(dim, dim)
+        self.dtype = dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         b, n, c = x.shape
         hd = c // self.num_heads
-        qkv = self.qkv(x).reshape(b, n, 3, self.num_heads, hd)
+        qkv = _linear(self.qkv, x, self.dtype).reshape(b, n, 3, self.num_heads, hd)
         q, k, v = (t.transpose(1, 2) for t in qkv.unbind(2))  # (B, H, N, D)
-        attn = torch.softmax((q * hd**-0.5) @ k.transpose(-2, -1), dim=-1)
-        out = (attn @ v).transpose(1, 2).reshape(b, n, c)
-        return self.proj(out)
+        logits = (q * hd**-0.5).float() @ k.float().transpose(-2, -1)
+        attn = torch.softmax(logits, dim=-1).to(self.dtype)
+        out = (attn.float() @ v.float()).transpose(1, 2).reshape(b, n, c)
+        return _linear(self.proj, out, self.dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -145,16 +202,18 @@ class TransformerBlock(nn.Module):
     stochastic depth). ``layer_scale_init=None`` means no LayerScale, the
     reference decoder's Identity (init_values=None); ``qkv_bias=False`` is
     the reference decoder's setting. DINOv2's ViT has both, with LayerNorm
-    eps 1e-6; the decoder's LayerNorms use torch's default 1e-5."""
+    eps 1e-6; the decoder's LayerNorms use torch's default 1e-5. With a
+    bf16 ``dtype`` the attention and MLP compute in bf16 while the
+    LayerNorms, LayerScale and the residual stream stay fp32."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
                  layer_scale_init: float | None = 1.0, norm_eps: float = 1e-5,
-                 qkv_bias: bool = True):
+                 qkv_bias: bool = True, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.norm1 = nn.LayerNorm(dim, eps=norm_eps)
-        self.attn = Attention(dim, num_heads, qkv_bias)
+        self.attn = Attention(dim, num_heads, qkv_bias, dtype)
         self.norm2 = nn.LayerNorm(dim, eps=norm_eps)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio))
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dtype)
         if layer_scale_init is None:
             self.ls1 = self.ls2 = nn.Identity()
         else:
@@ -162,8 +221,8 @@ class TransformerBlock(nn.Module):
             self.ls2 = LayerScale(dim, layer_scale_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x + self.ls1(self.attn(self.norm1(x)))
-        return x + self.ls2(self.mlp(self.norm2(x)))
+        x = x + self.ls1(self.attn(self.norm1(x))).float()
+        return x + self.ls2(self.mlp(self.norm2(x))).float()
 
 
 def init_lecun_normal_(module: nn.Module, generator: torch.Generator) -> nn.Module:

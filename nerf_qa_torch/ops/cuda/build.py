@@ -112,6 +112,10 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_channel_norm.argtypes = [vp, vp, vp, vp, ci, ci,
                                              ctypes.c_float, ci, ci, ci, vp]
             lib.nqt_channel_norm.restype = ci
+            lib.nqt_channel_norm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp,
+                                                 vp, ci, ci, ctypes.c_float,
+                                                 ci, ci, ci, ci, vp]
+            lib.nqt_channel_norm_bwd.restype = ci
             lib.nqt_jbu_filter.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ci, ci, vp]
             lib.nqt_jbu_filter.restype = ci

@@ -187,7 +187,11 @@ def test_port_and_chip_smoke_import_no_jax():
     for mod in ("models.nr.layers", "models.nr.vit", "models.nr.featup",
                 "models.nr.decoder", "models.nr.model", "ops.cuda.jbu",
                 "ops.cuda.channelnorm", "ops.windowed", "ops.cuda.windowed_tsd",
-                "core.adists"):
+                "core.adists", "train.nr_train", "train.schedules",
+                "tools.train_nr", "tools.make_synthetic_dataset",
+                "compat.checkpoint", "data.datasets", "data.samplers",
+                "data.pipeline", "data.factories", "logging.metrics",
+                "eval.correlations"):
         assert f"nerf_qa_torch.{mod}" in names, mod
 
 

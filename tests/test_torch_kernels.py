@@ -129,16 +129,113 @@ def test_channelnorm_module_routes_cuda_tensors_to_the_kernel():
 
 
 def test_channelnorm_kernel_rejects_grad_layout_and_width():
+    # a CUDA tensor under grad goes through the autograd Function (the
+    # backward kernel), never the plain version; bad layouts and widths
+    # still raise
     x = torch.randn(4, 8, 64, device="cuda")
     s, b = torch.ones(64, device="cuda"), torch.zeros(64, device="cuda")
-    with pytest.raises(RuntimeError, match="no backward"):
-        channelnorm.channel_norm_act(x.clone().requires_grad_(True), s, b)
+    before = (channelnorm.launches, channelnorm.bwd_launches)
+    xg = x.clone().requires_grad_(True)
+    channelnorm.channel_norm_act(xg, s, b).sum().backward()
+    assert (channelnorm.launches, channelnorm.bwd_launches) == (before[0] + 1, before[1] + 1)
+    assert xg.grad.shape == x.shape
     with pytest.raises(ValueError):
         channelnorm.channel_norm_act(x.transpose(0, 1), s, b)
     wide = torch.randn(2, 1100, device="cuda")
     with pytest.raises(ValueError):
         channelnorm.channel_norm_act(wide, torch.ones(1100, device="cuda"),
                                      torch.zeros(1100, device="cuda"))
+    with pytest.raises(ValueError):
+        channelnorm.channel_norm_act_bwd(x, x[:2], s, b)
+
+
+def _cn_bwd_inputs(rows, c, dtype, seed):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (1.5 * torch.randn((rows, c), generator=g, device="cuda") + 0.3).to(dtype)
+    dy = torch.randn((rows, c), generator=g, device="cuda").to(dtype)
+    scale = 1 + 0.2 * torch.randn(c, generator=g, device="cuda")
+    bias = 0.2 * torch.randn(c, generator=g, device="cuda")
+    return x, dy, scale, bias
+
+
+def _cn_abs_terms(x, g, scale, bias, gelu, eps=1e-5):
+    """Per channel, the sums of |dy·x̂| and |dy| that dscale and dbias add
+    up (the scale of their rounding)."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    xh = (xf - mean) * torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    dy = g.float()
+    if gelu:
+        t = xh * scale + bias
+        dy = dy * (0.5 * (1 + torch.erf(t * 0.5**0.5))
+                   + t * torch.exp(-0.5 * t * t) * (2 * torch.pi) ** -0.5)
+    return (dy * xh).abs().sum(0), dy.abs().sum(0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("c", [384, 387, 448, 512, 640, 896])
+def test_channelnorm_bwd_kernel_matches_plain(c, gelu, dtype):
+    # 4099 rows (a multiple of no tile): dx within the forward's tolerance,
+    # dscale and dbias within 1e-5 of the sums of their terms' magnitudes
+    # (fp32 sums over the rows in another order)
+    x, g, scale, bias = _cn_bwd_inputs(4099, c, dtype, c)
+    before = channelnorm.bwd_launches
+    dx, ds, db = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=gelu)
+    torch.cuda.synchronize()
+    assert channelnorm.bwd_launches == before + 1 and dx.dtype == dtype
+    pdx, pds, pdb = channelnorm.channel_norm_act_bwd_plain(x, g, scale, bias, gelu=gelu)
+    rtol, atol = CN_TOL[dtype]
+    torch.testing.assert_close(dx.float(), pdx.float(), rtol=rtol, atol=atol)
+    abs_s, abs_b = _cn_abs_terms(x, g, scale, bias, gelu)
+    assert bool(((ds - pds).abs() <= 1e-5 * abs_s + 1e-7).all())
+    assert bool(((db - pdb).abs() <= 1e-5 * abs_b + 1e-7).all())
+
+
+def test_channelnorm_bwd_kernel_repeats_bit_for_bit():
+    x, g, scale, bias = _cn_bwd_inputs(262_144, 387, torch.bfloat16, 1)
+    a = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=True)
+    b = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=True)
+    for u, v in zip(a, b):
+        assert torch.equal(u, v)
+
+
+def test_channelnorm_function_takes_non_contiguous_grad():
+    # autograd may hand the Function a gradient that is not row-contiguous
+    x, g, scale, bias = _cn_bwd_inputs(2 * 9 * 11, 448, torch.float32, 2)
+    x = x.reshape(2, 9, 11, 448)
+    gt = g.reshape(2, 11, 9, 448).transpose(1, 2)  # the shape of x, not contiguous
+    assert not gt.is_contiguous()
+    xg, sg, bg = (t.clone().requires_grad_(True) for t in (x, scale, bias))
+    channelnorm.channel_norm_act(xg, sg, bg, gelu=True).backward(gt)
+    dx, ds, db = channelnorm.channel_norm_act_bwd_plain(x, gt, scale, bias, gelu=True)
+    torch.testing.assert_close(xg.grad, dx, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(sg.grad, ds, rtol=1e-5, atol=1e-4)
+    torch.testing.assert_close(bg.grad, db, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channelnorm_module_launches_both_kernels_under_grad(dtype):
+    from nerf_qa_torch.models.nr.layers import ChannelNorm, nchw
+
+    cn = ChannelNorm(387).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    x = nchw(torch.randn(2, 9, 11, 387, generator=gen, device="cuda")).to(dtype)
+    dy = nchw(torch.randn(2, 9, 11, 387, generator=gen, device="cuda")).to(dtype)
+    grads = []
+    for fused in (True, False):
+        cn.fused = fused
+        cn.zero_grad()
+        xg = x.clone().requires_grad_(True)
+        before = (channelnorm.launches, channelnorm.bwd_launches)
+        cn(xg, gelu=True).backward(dy)
+        launched = (channelnorm.launches - before[0], channelnorm.bwd_launches - before[1])
+        assert launched == ((1, 1) if fused else (0, 0))
+        grads.append((xg.grad.float(), cn.norm.weight.grad.clone(), cn.norm.bias.grad.clone()))
+    rtol, atol = CN_TOL[dtype]
+    torch.testing.assert_close(grads[0][0], grads[1][0], rtol=rtol, atol=atol)
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
 def _jbu_inputs(shape, dtype, seed=0):

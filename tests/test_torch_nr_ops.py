@@ -132,16 +132,26 @@ def test_channel_norm_module_opt_in_routes_to_wrapper(monkeypatch):
 
 
 def test_channel_norm_wrapper_rejects_grad_and_bad_args():
+    # a CPU tensor under grad takes the plain version and autograd gives
+    # its gradient (the backward kernel is for CUDA tensors): it equals the
+    # written-out plain backward at fp32 rounding (1e-5); bad widths and
+    # dtypes still raise
     x, scale, bias = _cn_inputs((3,), 16)
     x, scale, bias = (torch.from_numpy(a) for a in (x, scale, bias))
-    with pytest.raises(RuntimeError, match="no backward"):
-        tcn.channel_norm_act(x.requires_grad_(True), scale, bias)
+    g = torch.linspace(-1, 1, x.numel()).reshape(x.shape)
+    xg, sg, bg = (t.clone().requires_grad_(True) for t in (x, scale, bias))
+    tcn.channel_norm_act(xg, sg, bg, gelu=True).backward(g)
+    for got, want in zip((xg.grad, sg.grad, bg.grad),
+                         tcn.channel_norm_act_bwd(x, g, scale, bias, gelu=True)):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     with torch.no_grad():  # no graph is built: the forward is allowed
         tcn.channel_norm_act(x, scale.requires_grad_(True), bias)
     with pytest.raises(ValueError):
         tcn.channel_norm_act(x.detach(), scale.detach()[:8], bias)
     with pytest.raises(TypeError):
         tcn.channel_norm_act(x.detach().double(), scale.detach(), bias)
+    with pytest.raises(ValueError):
+        tcn.channel_norm_act_bwd(x, g[:2], scale.detach(), bias)
 
 
 # -- JBU filter ----------------------------------------------------------------
