@@ -12,6 +12,7 @@ nvcc's stderr; nothing falls back.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -117,17 +118,45 @@ def load_library() -> ctypes.CDLL:
                                                  ci, ci, ci, ci, vp]
             lib.nqt_channel_norm_bwd.restype = ci
             lib.nqt_jbu_filter.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
-                                           ci, ci, vp]
+                                           ci, ci, ci, ci, ci, vp]
             lib.nqt_jbu_filter.restype = ci
-            lib.nqt_windowed_tsd.argtypes = [vp, vp, vp, vp, vp, vp, vp, ci,
-                                             ci, ci, ci, ci,
+            lib.nqt_windowed_tsd.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp,
+                                             ci, ci, ci, ci, ci, ci, ci, ci,
+                                             ci, ci,
                                              ctypes.POINTER(ctypes.c_float),
                                              ci, vp]
             lib.nqt_windowed_tsd.restype = ci
+            ip = ctypes.POINTER(ctypes.c_int)
+            lib.nqt_jbu_attrs.argtypes = [ci, ci, ip]
+            lib.nqt_jbu_attrs.restype = ci
+            lib.nqt_windowed_tsd_attrs.argtypes = [ci, ci, ci, ip]
+            lib.nqt_windowed_tsd_attrs.restype = ci
             lib.nqt_error_string.argtypes = [ci]
             lib.nqt_error_string.restype = ctypes.c_char_p
             _lib = lib
         return _lib
+
+
+@functools.cache
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device (the launch plans size
+    their grids by it)."""
+    import torch
+
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+ATTR_KEYS = ("registers", "local_bytes", "static_smem_bytes",
+             "dynamic_smem_bytes", "blocks_per_sm", "threads")
+
+
+def kernel_attrs(fn, *args: int) -> dict[str, int]:
+    """The attributes a kernel's ``nqt_*_attrs`` C function reports for
+    the variant its arguments name (``cudaFuncGetAttributes`` and
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    res = (ctypes.c_int * len(ATTR_KEYS))()
+    check(load_library(), fn(*args, res), fn.__name__)
+    return dict(zip(ATTR_KEYS, res))
 
 
 def check(lib: ctypes.CDLL, code: int, what: str) -> None:

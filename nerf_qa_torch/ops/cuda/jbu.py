@@ -10,14 +10,21 @@ bicubic-upsampled source ``hr`` over all C channels (``csrc/jbu.cu``).
 The plain version is the scan formulation of the JAX module
 (``models/nr/featup.py:94-131``): 49 shifted passes over the padded
 projection and 49 over the padded source. The kernel makes one pass: a
-block stages a 16×16 tile's projection and source with their 3-pixel halo
-in shared memory, so it is bounded by device memory, not by 49 re-reads.
+block stages a 16×16 tile's projection and then its source, 32 channels at
+a time, with their 3-pixel halo in shared memory, and each thread sums
+2 × 4 pixels × 4 channels in registers, so it is bounded by
+device memory, not by 49 re-reads. :func:`_plan` splits the channels
+across blocks on the small levels, where the tiles alone give too few
+blocks to fill the card.
 
 Forward only (the JBU is part of the frozen encoder). :func:`jbu_filter`
 takes CPU tensors through :func:`jbu_filter_plain` and CUDA tensors
 through the kernel; there is no fallback between them.
 """
 from __future__ import annotations
+
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -27,7 +34,36 @@ launches = 0
 
 RADIUS = 3
 KEY_DIM = 32
+TILE = 16  # output pixels of a block's tile, each way
+CHUNK = 32  # channels of a staged chunk; a channel group is a multiple
+BLOCKS_PER_SM = 2
 _DTYPES = (torch.float32, torch.bfloat16)
+
+
+class Plan(NamedTuple):
+    """A JBU launch: grid (tiles_w, tiles_h, N · groups); block z of image
+    n sums channels [g · cg, min(C, (g + 1) · cg)) of group g."""
+    tiles_w: int
+    tiles_h: int
+    groups: int
+    cg: int
+    vec: bool  # 16-byte cp.async copies (fp32, C % 4 == 0, aligned)
+
+
+def _plan(n: int, h: int, w: int, c: int, dtype: torch.dtype = torch.float32,
+          aligned: bool = True, sms: int = 132) -> Plan:
+    """Tiles and channel groups of one call. Where the tiles fill less than
+    one wave of blocks (BLOCKS_PER_SM an SM), the channels are split into
+    as many groups (a multiple of CHUNK channels each) as still fit in
+    that wave: every group recomputes its tile's weights, so a second wave
+    of groups would cost more than it hides. N · groups stays within the
+    grid's 65535."""
+    tiles_w, tiles_h = -(-w // TILE), -(-h // TILE)
+    blocks = tiles_w * tiles_h * n
+    groups = max(1, min(BLOCKS_PER_SM * sms // blocks, -(-c // CHUNK), 65535 // n))
+    cg = CHUNK * math.ceil(math.ceil(c / groups) / CHUNK)
+    vec = dtype == torch.float32 and c % 4 == 0 and aligned
+    return Plan(tiles_w, tiles_h, -(-c // cg), cg, vec)
 
 
 def _reflect_pad(x: torch.Tensor, r: int) -> torch.Tensor:
@@ -104,10 +140,14 @@ def jbu_filter(hr: torch.Tensor, proj: torch.Tensor, spatial: torch.Tensor,
     spatial = spatial.detach().float().contiguous()
     temp = temp.detach().float().reshape(1).contiguous()
     out = torch.empty((n, h, w, c), dtype=torch.float32, device=hr.device)
+    plan = _plan(n, h, w, c, hr.dtype,
+                 hr.data_ptr() % 16 == 0 and proj.data_ptr() % 16 == 0,
+                 build.sm_count(hr.device))
     with torch.cuda.device(hr.device):
         code = lib.nqt_jbu_filter(
             hr.data_ptr(), proj.data_ptr(), spatial.data_ptr(), temp.data_ptr(),
             out.data_ptr(), n, h, w, c, int(hr.dtype == torch.bfloat16),
+            int(plan.vec), plan.groups, plan.cg,
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "nqt_jbu_filter")
     launches += 1

@@ -13,11 +13,16 @@ norms) the moments are scaled after windowing, as the JAX forward does
 then passes the raw VGG features, and no normalised copy is written.
 Without them the call is the JAX ``windowed_tsd(fx, fy, ps, weights)``.
 
-The kernel is bounded by operations (about 440 fp32 operations per output
-pixel and channel). One block owns an output tile of one image and loops
-over the channels in registers: no atomics, results repeat bit for bit,
-no width cap. Inputs are read in their own dtype (bf16 or fp32) and
-accumulated in fp32; the TPU wrapper's bf16 downcast is dropped.
+The kernel is bounded by operations (about 380 fp32 operations per output
+pixel and channel). One block owns an output tile of 8 rows of one image
+and one group of channels; it stages each chunk of channels with 16-byte
+asynchronous copies and keeps the channel sum of its outputs in
+registers. :func:`_plan` picks the tile (a wide or a narrow compiled
+shape), the copy path and, where a stage gives too few blocks, a split of
+the channels into groups whose partial maps a second launch adds in group
+order: no atomics, results repeat bit for bit, no width cap. Inputs are
+read in their own dtype (bf16 or fp32) and accumulated in fp32; the TPU
+wrapper's bf16 downcast is dropped.
 
 Forward only. :func:`windowed_tsd` takes CPU tensors through
 :func:`windowed_tsd_plain` and CUDA tensors through the kernel; there is
@@ -26,6 +31,8 @@ no fallback between them.
 from __future__ import annotations
 
 import ctypes
+import math
+from typing import NamedTuple
 
 import torch
 
@@ -37,6 +44,72 @@ launches = 0
 WINDOW = 21  # the kernel's window
 _EPS = 1e-6
 _DTYPES = (torch.float32, torch.bfloat16)
+
+TILE_H = 8  # output rows of a block's tile
+LANES = 4  # channels of a subpass; the plain-load path's chunk
+
+
+class Shape(NamedTuple):
+    """What the plan needs of a compiled tile shape of csrc/windowed_tsd.cu
+    (``Wide``, ``Narrow``); its threads and shared memory stay in the
+    source, held there by static_asserts."""
+    tw_max: int  # output columns of a tile, at most
+    blocks_per_sm: int
+
+
+SHAPES = (Shape(108, 1), Shape(44, 2))
+NARROW = 1
+
+
+class Plan(NamedTuple):
+    """One T/S launch: grid (tiles_h · tiles_w, N, groups) of the compiled
+    ``shape``; tile (r, q) covers output rows [8r, 8r + 8) and columns
+    [q · tw, q · tw + tw); group g sums channels [g · cg, min(C, g · cg +
+    cg)) in chunks of ``ccb``."""
+    shape: int
+    tw: int
+    tiles_w: int
+    tiles_h: int
+    groups: int
+    cg: int
+    ccb: int
+    vec: bool  # 16-byte cp.async copies; else plain loads
+
+
+def _plan(n: int, h: int, w: int, c: int, dtype: torch.dtype = torch.bfloat16,
+          aligned: bool = True, sms: int = 132, shape: int | None = None) -> Plan:
+    """Tiles, copy path and channel groups of one call. Stages at most 44
+    outputs wide take the narrow shape; wider ones the wide shape, with the
+    fewest column tiles of equal width. Channels are split where the tiles
+    give fewer than two waves of blocks. ``shape`` forces a compiled shape
+    (to time one against the other)."""
+    hk, wk = h - WINDOW + 1, w - WINDOW + 1
+    if shape is None:
+        shape = NARROW if wk <= SHAPES[NARROW].tw_max else 0
+    tiles_w = -(-wk // SHAPES[shape].tw_max)
+    tw = -(-wk // tiles_w)
+    tiles_h = -(-hk // TILE_H)
+    vec_c = 16 // (2 if dtype == torch.bfloat16 else 4)
+    vec = aligned and c % vec_c == 0
+    ccb = vec_c if vec else LANES
+    blocks = tiles_w * tiles_h * n
+    want = 2 * SHAPES[shape].blocks_per_sm * sms
+    groups = 1
+    if blocks < want:
+        groups = min(-(-want // blocks), -(-c // ccb), 65535)
+    cg = ccb * math.ceil(math.ceil(c / groups) / ccb)
+    return Plan(shape, tw, tiles_w, tiles_h, -(-c // cg), cg, ccb, vec)
+
+
+_taps = None
+
+
+def _taps_array():
+    """The 21 Gaussian taps as a ctypes array, built once per process."""
+    global _taps
+    if _taps is None:
+        _taps = (ctypes.c_float * WINDOW)(*gaussian_taps(WINDOW, WINDOW / 3.0))
+    return _taps
 
 
 def windowed_tsd_plain(fx: torch.Tensor, fy: torch.Tensor, ps: torch.Tensor,
@@ -137,17 +210,25 @@ def windowed_tsd(fx: torch.Tensor, fy: torch.Tensor, ps: torch.Tensor,
     hk, wk = h - WINDOW + 1, w - WINDOW + 1
     ps = ps.reshape(n, hk, wk).float().contiguous()
     weights = weights.float().contiguous()
-    if inv_x is None:
-        inv_x = inv_y = torch.ones((n, c), dtype=torch.float32, device=fx.device)
-    inv_x = inv_x.float().contiguous()
-    inv_y = inv_y.float().contiguous()
-    taps = (ctypes.c_float * WINDOW)(*gaussian_taps(WINDOW, WINDOW / 3.0))
+    if inv_x is not None:
+        inv_x = inv_x.float().contiguous()
+        inv_y = inv_y.float().contiguous()
+    plan = _plan(n, h, w, c, fx.dtype,
+                 fx.data_ptr() % 16 == 0 and fy.data_ptr() % 16 == 0,
+                 build.sm_count(fx.device))
     out = torch.empty((n, hk, wk), dtype=torch.float32, device=fx.device)
+    partial = None
+    if plan.groups > 1:
+        partial = torch.empty((plan.groups, n, hk, wk), dtype=torch.float32,
+                              device=fx.device)
     with torch.cuda.device(fx.device):
         code = lib.nqt_windowed_tsd(
             fx.data_ptr(), fy.data_ptr(), ps.data_ptr(), weights.data_ptr(),
-            inv_x.data_ptr(), inv_y.data_ptr(), out.data_ptr(), n, h, w, c,
-            int(fx.dtype == torch.bfloat16), taps, WINDOW,
+            None if inv_x is None else inv_x.data_ptr(),
+            None if inv_y is None else inv_y.data_ptr(),
+            None if partial is None else partial.data_ptr(), out.data_ptr(),
+            n, h, w, c, int(fx.dtype == torch.bfloat16), int(plan.vec),
+            plan.shape, plan.tw, plan.groups, plan.cg, _taps_array(), WINDOW,
             torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "nqt_windowed_tsd")
     launches += 1

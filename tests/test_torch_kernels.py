@@ -266,6 +266,51 @@ def test_jbu_kernel_matches_plain(shape, dtype):
                                rtol=JBU_RTOL, atol=JBU_ATOL)
 
 
+@pytest.mark.parametrize("c", [5, 33])
+def test_jbu_kernel_odd_channel_counts(c):
+    # C not a multiple of 4: plain loads into the chunk layout, scalar stores
+    hr, proj, spatial, temp = _jbu_inputs((2, 23, 37, c), torch.float32, seed=c)
+    assert not jbu._plan(2, 23, 37, c).vec
+    torch.testing.assert_close(jbu.jbu_filter(hr, proj, spatial, temp),
+                               jbu.jbu_filter_plain(hr, proj, spatial, temp),
+                               rtol=JBU_RTOL, atol=JBU_ATOL)
+
+
+def test_jbu_kernel_misaligned_view():
+    # a contiguous view whose data_ptr is one element past a 16-byte boundary
+    hr, proj, spatial, temp = _jbu_inputs((1, 20, 24, 64), torch.float32, seed=4)
+    base = torch.empty(hr.numel() + 1, device="cuda")
+    view = base[1:].view(hr.shape)
+    view.copy_(hr)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    torch.testing.assert_close(jbu.jbu_filter(view, proj, spatial, temp),
+                               jbu.jbu_filter_plain(hr, proj, spatial, temp),
+                               rtol=JBU_RTOL, atol=JBU_ATOL)
+
+
+def test_jbu_kernel_repeats_bit_for_bit():
+    # a split level (channel groups) and an unsplit one
+    for shape in [(8, 32, 32, 384), (2, 256, 256, 384)]:
+        args = _jbu_inputs(shape, torch.float32, seed=2)
+        assert torch.equal(jbu.jbu_filter(*args), jbu.jbu_filter(*args))
+
+
+def test_kernel_attributes_show_no_spills():
+    from nerf_qa_torch.ops.cuda import build
+
+    lib = build.load_library()
+    variants = [(lib.nqt_jbu_attrs, args, jbu.BLOCKS_PER_SM)
+                for args in ((0, 1), (0, 0), (1, 0))]
+    variants += [(lib.nqt_windowed_tsd_attrs, (bf, vec, s), shp.blocks_per_sm)
+                 for bf in (0, 1) for vec in (0, 1)
+                 for s, shp in enumerate(windowed_tsd.SHAPES)]
+    for fn, args, blocks in variants:
+        a = build.kernel_attrs(fn, *args)
+        assert a["local_bytes"] == 0, (fn.__name__, args, a)
+        # the plan's blocks an SM fit the kernel's registers and shared memory
+        assert a["blocks_per_sm"] >= blocks, (fn.__name__, args, a)
+
+
 def test_jbu_module_routes_cuda_tensors_to_the_kernel():
     from nerf_qa_torch.models.nr.featup import JBU
 
@@ -355,6 +400,43 @@ def test_tsd_kernel_repeats_bit_for_bit():
     args, kw = _tsd_inputs((2, 100, 150, 40), torch.bfloat16)
     assert torch.equal(windowed_tsd.windowed_tsd(*args, **kw),
                        windowed_tsd.windowed_tsd(*args, **kw))
+    # split channels: the partial maps are added in group order
+    args, kw = _tsd_inputs((1, 67, 120, 512), torch.bfloat16)
+    assert windowed_tsd._plan(1, 67, 120, 512).groups > 1
+    assert torch.equal(windowed_tsd.windowed_tsd(*args, **kw),
+                       windowed_tsd.windowed_tsd(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 32, 32, 512), (1, 67, 120, 512),
+                                   (2, 135, 240, 512), (16, 32, 32, 512)])
+def test_tsd_kernel_channel_split_stages(shape, dtype):
+    assert windowed_tsd._plan(*shape, dtype).groups > 1
+    args, kw = _tsd_inputs(shape, dtype, seed=3)
+    _assert_rel(windowed_tsd.windowed_tsd(*args, **kw),
+                windowed_tsd.windowed_tsd_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("c", [3, 5, 12])
+def test_tsd_kernel_odd_channel_counts(c, dtype):
+    args, kw = _tsd_inputs((2, 45, 130, c), dtype, seed=c)
+    _assert_rel(windowed_tsd.windowed_tsd(*args, **kw),
+                windowed_tsd.windowed_tsd_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_tsd_kernel_misaligned_view(dtype):
+    # C = 64 would take 16-byte copies; a view one element past a 16-byte
+    # boundary takes the plain-load path
+    args, kw = _tsd_inputs((2, 40, 60, 64), dtype, seed=5)
+    fx = args[0]
+    base = torch.empty(fx.numel() + 1, dtype=dtype, device="cuda")
+    view = base[1:].view(fx.shape)
+    view.copy_(fx)
+    assert view.is_contiguous() and view.data_ptr() % 16 != 0
+    _assert_rel(windowed_tsd.windowed_tsd(view, *args[1:], **kw),
+                windowed_tsd.windowed_tsd_plain(*args, **kw))
 
 
 def test_tsd_kernel_rejects_grad_layout_and_small_stages():

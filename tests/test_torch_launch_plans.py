@@ -1,0 +1,130 @@
+"""Launch plans of the port's JBU and windowed T/S kernels, on the CPU.
+
+The plans are plain Python (tiles, channel groups, copy path); the kernels
+that run them need the card (tests/test_torch_kernels.py). Each plan must
+cover every output pixel exactly once, partition the channels, and stay
+within the grid's limits. The shared-memory sizes live only in the kernel
+sources, held by their static_asserts, and the card's test reads them
+(test_kernel_attributes_show_no_spills).
+"""
+import pytest
+import torch
+
+from nerf_qa_torch.ops.cuda import jbu, windowed_tsd as tsd
+from nerf_qa_torch.ops.windowed import gaussian_taps
+
+GRID_X_MAX = 2**31 - 1
+GRID_YZ_MAX = 65535
+
+# the ADISTS paths' stage shapes (256² at batch 128, 1080p at batch 2) and
+# edge shapes
+TSD_SHAPES = [
+    (128, 256, 256, 3), (128, 256, 256, 64), (128, 128, 128, 128),
+    (128, 64, 64, 256), (128, 32, 32, 512), (2, 1080, 1920, 3),
+    (2, 1080, 1920, 64), (2, 540, 960, 128), (2, 270, 480, 256),
+    (2, 135, 240, 512), (2, 68, 120, 512), (1, 21, 21, 3), (2, 37, 53, 5),
+    (1, 40, 1920, 8), (2, 45, 70, 12), (2, 32, 32, 512), (1, 67, 120, 512),
+    (3, 150, 64, 7), (65535, 21, 30, 4),
+]
+
+
+def _groups(c, groups, cg):
+    return [(g * cg, min(c, g * cg + cg)) for g in range(groups)]
+
+
+def _assert_partition(c, groups, cg, unit):
+    ranges = _groups(c, groups, cg)
+    assert cg % unit == 0
+    assert all(lo < hi for lo, hi in ranges)
+    assert ranges[0][0] == 0 and ranges[-1][1] == c
+    assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+
+
+@pytest.mark.parametrize("forced", [None, 0, tsd.NARROW])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", TSD_SHAPES)
+def test_tsd_plan_covers_each_output_once(shape, dtype, forced):
+    n, h, w, c = shape
+    hk, wk = h - 20, w - 20
+    plan = tsd._plan(n, h, w, c, dtype, shape=forced)
+    assert forced is None or plan.shape == forced
+    shp = tsd.SHAPES[plan.shape]
+    assert 1 <= plan.tw <= shp.tw_max
+    cover = torch.zeros((hk, wk), dtype=torch.int32)
+    for r in range(plan.tiles_h):
+        for q in range(plan.tiles_w):
+            cover[r * tsd.TILE_H:(r + 1) * tsd.TILE_H, q * plan.tw:(q + 1) * plan.tw] += 1
+    assert bool((cover == 1).all())
+    # no tile lies wholly past the map
+    assert (plan.tiles_h - 1) * tsd.TILE_H < hk and (plan.tiles_w - 1) * plan.tw < wk
+    _assert_partition(c, plan.groups, plan.cg, plan.ccb)
+    assert plan.tiles_h * plan.tiles_w <= GRID_X_MAX
+    assert n <= GRID_YZ_MAX and plan.groups <= GRID_YZ_MAX
+
+
+@pytest.mark.parametrize("dtype,c,aligned,vec,ccb", [
+    (torch.bfloat16, 64, True, True, 8), (torch.bfloat16, 12, True, False, 4),
+    (torch.bfloat16, 64, False, False, 4), (torch.float32, 12, True, True, 4),
+    (torch.float32, 3, True, False, 4), (torch.float32, 64, False, False, 4),
+    (torch.bfloat16, 3, True, False, 4),
+])
+def test_tsd_plan_copy_path(dtype, c, aligned, vec, ccb):
+    plan = tsd._plan(2, 80, 90, c, dtype, aligned)
+    assert (plan.vec, plan.ccb) == (vec, ccb)
+
+
+def test_tsd_plan_shapes_and_channel_split():
+    # narrow stages take the narrow shape; a stage with fewer than two waves
+    # of blocks splits its channels, the 256² stages 0-2 and 1080p stages
+    # 0-3 do not
+    small = tsd._plan(128, 32, 32, 512)
+    assert small.shape == tsd.NARROW and small.groups > 1
+    assert tsd._plan(128, 64, 64, 256).shape == tsd.NARROW
+    assert tsd._plan(2, 68, 120, 512).groups > 1
+    for shape in [(128, 256, 256, 64), (128, 128, 128, 128), (2, 1080, 1920, 64),
+                  (2, 270, 480, 256)]:
+        plan = tsd._plan(*shape)
+        assert plan.shape == 0 and plan.groups == 1
+    # more SMs, more groups
+    assert tsd._plan(2, 68, 120, 512, sms=264).groups >= tsd._plan(2, 68, 120, 512).groups
+
+
+def test_tsd_taps_are_built_once():
+    a = tsd._taps_array()
+    assert tsd._taps_array() is a
+    assert list(a) == pytest.approx(list(gaussian_taps(21, 7.0)), rel=1e-7)
+
+
+JBU_SHAPES = [(8, 32, 32, 384), (8, 64, 64, 384), (8, 128, 128, 384),
+              (8, 256, 256, 384), (4, 256, 256, 384), (1, 17, 33, 48),
+              (3, 4, 5, 8), (1, 16, 16, 33), (1, 9, 7, 5), (65535, 4, 4, 64),
+              (2, 300, 20, 1)]
+
+
+@pytest.mark.parametrize("shape", JBU_SHAPES)
+def test_jbu_plan_covers_each_output_once(shape):
+    n, h, w, c = shape
+    plan = jbu._plan(n, h, w, c)
+    assert (plan.tiles_w - 1) * jbu.TILE < w <= plan.tiles_w * jbu.TILE
+    assert (plan.tiles_h - 1) * jbu.TILE < h <= plan.tiles_h * jbu.TILE
+    _assert_partition(c, plan.groups, plan.cg, jbu.CHUNK)
+    assert plan.tiles_w <= GRID_X_MAX and plan.tiles_h <= GRID_YZ_MAX
+    assert n * plan.groups <= GRID_YZ_MAX
+
+
+def test_jbu_plan_splits_small_levels_only():
+    # batch 8: the 32² and 64² levels fill less than a wave and split their
+    # channels within one wave; 128² and 256² do not split
+    groups = [jbu._plan(8, s, s, 384).groups for s in (32, 64, 128, 256)]
+    assert groups[0] > groups[1] > 1 and groups[2] == groups[3] == 1
+    for s, g in zip((32, 64), groups):
+        blocks = (-(-s // jbu.TILE)) ** 2 * 8 * g
+        assert blocks <= jbu.BLOCKS_PER_SM * 132
+
+
+@pytest.mark.parametrize("dtype,c,aligned,vec", [
+    (torch.float32, 384, True, True), (torch.float32, 33, True, False),
+    (torch.float32, 384, False, False), (torch.bfloat16, 384, True, False),
+])
+def test_jbu_plan_copy_path(dtype, c, aligned, vec):
+    assert jbu._plan(2, 40, 40, c, dtype, aligned).vec is vec
