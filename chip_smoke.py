@@ -32,12 +32,13 @@ checks that each went through its kernels:
   resume and ``score --nr`` of its checkpoint.
 
 It checks and times each kernel at its path's shapes against its plain
-version, with its bound and a PyTorch yardstick; prints the registers,
-local memory, shared memory and blocks per SM of the T/S and JBU kernels'
-variants (failing on any spill to local memory); and holds both to a
-bit-for-bit repeat at a path shape. Each phase prints one line; any failure
-raises and the exit code is not 0. The last two lines are the kernels'
-JSON and the device JSON.
+version, with its bound and a PyTorch yardstick (the ChannelNorm
+backward also with its device time from the profiler); prints the
+registers, local memory, shared memory and blocks per SM of the T/S,
+JBU and ChannelNorm backward kernels' variants (failing on any spill to
+local memory); and holds those three to a bit-for-bit repeat at a path
+shape. Each phase prints one line; any failure raises and the exit code
+is not 0. The last two lines are the kernels' JSON and the device JSON.
 
 It needs a CUDA device and the rest of the repository, and fails without
 either. It imports nothing of JAX or of the JAX package.
@@ -49,6 +50,7 @@ import copy
 import functools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -76,7 +78,10 @@ SCORE_ATOL = 1e-4
 NR_BATCH = 8
 NR_BATCHES = 2  # batches of the counted NR run
 NR_TIMED = 5  # batches per timed turn
-NR_CN_PER_BATCH = 19  # ChannelNorms of the v8 decoder at depths 2 / 2
+NR_CN_MODULES = 19  # ChannelNorms of the v8 decoder at depths 2 / 2
+# ChannelNorm launches per NR batch: every module but the last stage's
+# resample, whose output the v7/v8 cascade never computes
+NR_CN_PER_BATCH = NR_CN_MODULES - 1
 JBU_LEVELS = ((32, 32), (64, 64), (128, 128), (256, 256))
 JBU_C, JBU_K = 384, 32
 # JBU: fp32 sums of 49 terms and 32-term dots in other orders
@@ -108,12 +113,12 @@ TRAIN_LR = 3e-4
 TRAIN_COUNTED = 3  # steps of the counted run
 TRAIN_TIMED = 3  # steps per timed turn
 TRAIN_DTYPES = ("bfloat16", "float32")  # decoder: the CLI default, the parity path
-# launches per training step: the encoder's 4 JBU levels, the decoder's 19
-# ChannelNorms forward and 18 backward (the last stage's resample layer
-# makes the cascade's unused output: no gradient reaches it, so autograd
-# never calls its backward); the losses take eager statistics
+# launches per training step: the encoder's 4 JBU levels, and the
+# decoder's 18 ChannelNorms forward and 18 backward: every ChannelNorm that
+# runs lies on the loss's path (the last stage's resample does not run);
+# the losses take eager statistics
 TRAIN_LAUNCHES = {"moments": 0, "jbu": 4, "channelnorm": NR_CN_PER_BATCH,
-                  "channelnorm_bwd": NR_CN_PER_BATCH - 1, "windowed_tsd": 0}
+                  "channelnorm_bwd": NR_CN_PER_BATCH, "windowed_tsd": 0}
 # the training step's profiler ranges (NRModel.losses, NRTrainer.train_step)
 # and the device time launched outside them
 TRAIN_LAYERS = ("encode_ms", "decoder_fwd_ms", "losses_ms", "backward_ms",
@@ -305,10 +310,12 @@ def launch_counts() -> dict[str, int]:
 def kernel_attrs() -> dict[str, dict]:
     """Phase kernel_attrs: registers, local memory, shared memory and
     resident blocks an SM of every variant of the T/S kernel (dtype, copy
-    path, tile shape) and of the JBU kernel, from cudaFuncGetAttributes and
-    the occupancy calculator. Fails on local memory (spills) or on fewer
-    blocks an SM than the launch plans assume."""
-    from nerf_qa_torch.ops.cuda import build, jbu
+    path, tile shape), of the JBU kernel and of the ChannelNorm backward
+    (dtype, values a lane, at the variant's widest C), from
+    cudaFuncGetAttributes and the occupancy calculator. Fails on local
+    memory (spills) or on fewer blocks an SM than a kernel's launch bounds
+    or its launch plan take."""
+    from nerf_qa_torch.ops.cuda import build, channelnorm, jbu
     from nerf_qa_torch.ops.cuda import windowed_tsd as tsd
 
     lib = build.load_library()
@@ -322,8 +329,11 @@ def kernel_attrs() -> dict[str, dict]:
             if not (bf and vec):
                 out[f"jbu {name} vec={vec}"] = dict(build.kernel_attrs(
                     lib.nqt_jbu_attrs, bf, vec), plan_blocks_per_sm=jbu.BLOCKS_PER_SM)
-    bad = {k: v for k, v in out.items() if v["local_bytes"] > 0
-           or v["blocks_per_sm"] < v["plan_blocks_per_sm"]}
+        for c in range(32, channelnorm.MAX_CHANNELS + 1, 32):
+            out[f"channelnorm_bwd {name} C<={c}"] = build.kernel_attrs(
+                lib.nqt_channel_norm_bwd_attrs, bf, c)
+    bad = {k: v for k, v in out.items() if v["local_bytes"] > 0 or v["blocks_per_sm"]
+           < max(v["min_blocks_per_sm"], v.get("plan_blocks_per_sm", 1))}
     phase("kernel_attrs", variants=out)
     if bad:
         raise AssertionError(f"kernel attributes: spills or occupancy {bad}")
@@ -338,11 +348,12 @@ def tsd_variant(dtype, vec, shape: int) -> str:
 
 
 def repeat_check(gen) -> None:
-    """Phase repeat: the T/S kernel at (128, 256, 256, 64) bf16 and the JBU
-    kernel at (8, 256, 256, 384) fp32, each launched twice on the same
+    """Phase repeat: the T/S kernel at (128, 256, 256, 64) bf16, the JBU
+    kernel at (8, 256, 256, 384) fp32 and the ChannelNorm backward at
+    (262144, 387) bf16 with the GELU, each launched twice on the same
     inputs: the outputs must be equal bit for bit (no atomics, sums in a
     fixed order)."""
-    from nerf_qa_torch.ops.cuda import jbu
+    from nerf_qa_torch.ops.cuda import channelnorm, jbu
     from nerf_qa_torch.ops.cuda import windowed_tsd as tsd
 
     args, inv = tsd_args((BATCH, 256, 256, 64), torch.bfloat16, gen)
@@ -352,10 +363,17 @@ def repeat_check(gen) -> None:
     args = jbu_inputs((NR_BATCH, 256, 256, JBU_C), torch.float32, gen)
     jbu_same = bool(torch.equal(jbu.jbu_filter(*args), jbu.jbu_filter(*args)))
     del args
+    args = cn_bwd_inputs(262_144, 387, torch.bfloat16, gen)
+    a = channelnorm.channel_norm_act_bwd(*args, gelu=True)
+    b = channelnorm.channel_norm_act_bwd(*args, gelu=True)
+    cn_same = all(torch.equal(u, v) for u, v in zip(a, b))
+    del args, a, b
     phase("repeat", windowed_tsd=[BATCH, 256, 256, 64, "bfloat16", tsd_same],
-          jbu=[NR_BATCH, 256, 256, JBU_C, "float32", jbu_same])
-    if not (tsd_same and jbu_same):
-        raise AssertionError(f"repeat: T/S {tsd_same}, JBU {jbu_same}")
+          jbu=[NR_BATCH, 256, 256, JBU_C, "float32", jbu_same],
+          channelnorm_bwd=[262_144, 387, "bfloat16", "gelu", cn_same])
+    if not (tsd_same and jbu_same and cn_same):
+        raise AssertionError(f"repeat: T/S {tsd_same}, JBU {jbu_same}, "
+                             f"ChannelNorm backward {cn_same}")
 
 
 def check_jbu(gen) -> float:
@@ -434,9 +452,9 @@ def nr_path(vgg, gen):
                  jbu=resolve_jbu_params(seed=1), seed=2)
     scorer = NRScorer(nr, batch_size=NR_BATCH)
     n_cn = sum(isinstance(m, ChannelNorm) for m in nr.decoder.modules())
-    if n_cn != NR_CN_PER_BATCH:
+    if n_cn != NR_CN_MODULES:
         raise AssertionError(f"decoder has {n_cn} ChannelNorms, expected "
-                             f"{NR_CN_PER_BATCH}")
+                             f"{NR_CN_MODULES}")
     plain = NRModel(vgg, weights, cfg.replace(dists=cfg.dists.replace(
         stats_impl="eager")), vit=nr.vit, jbu=nr.jbu, decoder=nr.decoder).to("cuda")
 
@@ -528,6 +546,9 @@ def nr_path(vgg, gen):
         ("vit_ms", "jbu_pyramid_ms", "vgg_ms", "decoder_ms", "score_ms"),
         (a.elapsed_time(b) for a, b in zip(marks, marks[1:]))))
     cn_calls = channelnorm_calls(nr, feats)
+    if len(cn_calls) != NR_CN_PER_BATCH:
+        raise AssertionError(f"decoder forward ran {len(cn_calls)} ChannelNorms, "
+                             f"expected {NR_CN_PER_BATCH}: {cn_calls}")
     del toks, sem, pyramid, dfeats, predicted
 
     prof = profile_step(lambda: nr_step(scorer, plain, r256, r224, "kernels"))
@@ -543,7 +564,7 @@ def nr_path(vgg, gen):
 
 def nr_timing(cn_calls, gen, attrs) -> tuple[dict[str, dict], dict[str, float]]:
     """Phase timing rows of the NR kernels at the path's shapes (batch 8,
-    fp32), summed per batch: the four JBU levels and the decoder's
+    fp32), summed per batch: the four JBU levels and the decoder's 18
     ChannelNorm calls. Each call is first held against its plain version
     on the same inputs; returns the rows and each kernel's largest error.
     ``ms`` is one timed run, as for every kernel; a JBU row also gives the
@@ -1145,28 +1166,64 @@ def cn_bwd_bound(rows: int, c: int, gelu: bool, itemsize: int) -> tuple[float, s
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def device_ms(fn, iters: int = 20, tries: int = 3) -> float | None:
+    """Device time per call of fn's kernels, copies and sets under
+    torch.profiler (after a warm-up call): the kernels' own time, without
+    the host work between launches that CUDA events also see. A session
+    can miss some calls' kernels, so each kernel counts at its median
+    duration times its launches per call; a session that saw none is run
+    again, and after ``tries`` such sessions the time is not measured
+    (None)."""
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(tries):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        durations = {}
+        for e in prof.events():
+            if _on_device(e):
+                durations.setdefault(e.name, []).append(e.time_range.elapsed_us())
+        if durations:
+            return sum(statistics.median(d) * max(1, round(len(d) / iters))
+                       for d in durations.values()) / 1e3
+    return None
+
+
+def add_ms(total: float | None, count: int, t: float | None) -> float | None:
+    """total + count · t, not measured (None) if either is not."""
+    return None if total is None or t is None else total + count * t
+
+
 def check_cn_bwd(gen, train_calls: dict[str, list]) -> tuple[float, dict[str, dict]]:
     """Phase cn_bwd_vs_plain: the ChannelNorm backward kernel against its
-    plain version on the forward's grid (every decoder width, 4099 rows,
-    GELU on and off, fp32 and bf16) and at every (rows, C, GELU) call of
-    one batch-4 training step in each decoder dtype, each call also timed
-    against the plain version, the bound and the autograd backward of
-    ``F.layer_norm`` + ``F.gelu`` (a yardstick the port never calls).
-    Returns the largest error and each dtype's per-step totals."""
+    plain version on a grid (every decoder width and C = 5, 33 at 4099
+    rows; 1, 7 and 262,144 rows at C = 387; GELU on and off, fp32 and
+    bf16) and at every (rows, C, GELU) call of one batch-4 training step
+    in each decoder dtype, each call also timed against the plain version,
+    the bound and the autograd backward of ``F.layer_norm`` + ``F.gelu``
+    (a yardstick the port never calls), with its device time from the
+    profiler. Returns the largest error and each dtype's per-step totals."""
     from nerf_qa_torch.config import torch_dtype
-    from nerf_qa_torch.ops.cuda import channelnorm
+    from nerf_qa_torch.ops.cuda import build, channelnorm
 
+    grid = [(CN_ROWS, c) for c in CN_CHANNELS + (5, 33)]
+    grid += [(rows, 387) for rows in (1, 7, 262_144)]
     worst = {}
     for dt in (torch.float32, torch.bfloat16):
-        for c in CN_CHANNELS:
-            args = cn_bwd_inputs(CN_ROWS, c, dt, gen)
+        for rows, c in grid:
+            args = cn_bwd_inputs(rows, c, dt, gen)
             for gelu in (False, True):
-                key = f"({CN_ROWS}, {c}) gelu={gelu} {str(dt).split('.')[-1]}"
+                key = f"({rows}, {c}) gelu={gelu} {str(dt).split('.')[-1]}"
                 worst[key] = cn_bwd_check(*args, gelu, f"channelnorm bwd {key}")
+            del args
     totals = {}
     for name, calls in train_calls.items():
         dt = torch_dtype(name)
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0}
+        tot = {"ms": 0.0, "device_ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+               "library_ms": 0.0}
         bound_by = set()
         for (rows, c, gelu), count in sorted({k: calls.count(k) for k in calls}.items()):
             x, g, scale, bias = cn_bwd_inputs(rows, c, dt, gen)
@@ -1179,22 +1236,29 @@ def check_cn_bwd(gen, train_calls: dict[str, list]) -> tuple[float, dict[str, di
             bl = bias.to(dt).requires_grad_(True)
             y = F.layer_norm(xl, (c,), wl, bl, 1e-5)
             y = F.gelu(y) if gelu else y
-            row = {"ms": time_ms(lambda: channelnorm.channel_norm_act_bwd(
-                       x, g, scale, bias, gelu=gelu)),
+
+            def kernel():
+                return channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=gelu)
+
+            row = {"ms": time_ms(kernel), "device_ms": device_ms(kernel),
                    "plain_ms": time_ms(lambda: channelnorm.channel_norm_act_bwd_plain(
                        x, g, scale, bias, gelu=gelu), 5),
                    # yardstick only: the port never calls it
                    "library_ms": time_ms(lambda: torch.autograd.grad(
                        y, (xl, wl, bl), g, retain_graph=True)),
                    "bound_ms": bound}
-            for k in tot:
+            for k in ("ms", "plain_ms", "bound_ms", "library_ms"):
                 tot[k] += count * row[k]
+            tot["device_ms"] = add_ms(tot["device_ms"], count, row["device_ms"])
+            plan = channelnorm._bwd_plan(
+                rows, c, build.sm_count(x.device), channelnorm._bwd_blocks_per_sm(
+                    x.device, dt == torch.bfloat16, c))
             phase("timing", kernel="channelnorm_bwd", rows=rows, c=c, gelu=gelu,
                   calls_per_step=count, dtype=name, max_abs_err=worst[key],
-                  bound_by=by, **row)
+                  bound_by=by, blocks=plan.blocks, **row)
             del x, g, xl, y
         totals[name] = dict(tot, bound_by="bytes" if bound_by == {"bytes"} else "operations")
-    phase("cn_bwd_vs_plain", rows=CN_ROWS, tolerances={
+    phase("cn_bwd_vs_plain", grid=grid, tolerances={
         str(k).split(".")[-1]: v for k, v in CN_TOL.items()},
         sum_rtol=CN_BWD_SUM_RTOL, max_abs_err=worst, per_step=totals)
     return max(worst.values()), totals

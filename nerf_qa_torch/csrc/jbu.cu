@@ -71,6 +71,7 @@ constexpr int kTile = 16;
 constexpr int kHalo = kTile + 2 * kR;  // 22
 constexpr int kPos = kHalo * kHalo;    // 484
 constexpr int kThreads = kTile * kTile;
+constexpr int kMinBlocks = 2;  // resident blocks an SM the kernel is built for
 constexpr int kCC = 32;  // channels of a chunk: 8 float4 slots a pixel
 constexpr int kPx = 4;   // pixels of a thread along a row, in each of 2 rows
 // shared memory in floats: weights [49][256], then one chunk buffer of
@@ -81,7 +82,7 @@ constexpr int kBufFloats = kPos * kCC;
 constexpr size_t kSmemBytes =
     sizeof(float) * (kWtsFloats + kBufFloats) + sizeof(int) * 2 * kHalo;
 static_assert(kK == kCC, "the projection fills the chunk buffer");
-static_assert(kSmemBytes <= 115 * 1024, "two blocks an SM");
+static_assert(kSmemBytes * kMinBlocks <= 230 * 1024, "two blocks an SM");
 
 __device__ __forceinline__ float to_f(float v) { return v; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -150,7 +151,7 @@ __device__ __forceinline__ void stage_chunk(float* buf, const T* __restrict__ hr
 }
 
 template <typename T, bool VEC>
-__global__ void __launch_bounds__(kThreads, 2)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 jbu_kernel(const T* __restrict__ hr, const T* __restrict__ proj,
            const float* __restrict__ spatial, const float* __restrict__ temp_ptr,
            float* __restrict__ out, int h, int w, int c, int groups, int cg) {
@@ -355,6 +356,7 @@ cudaError_t attrs(int* res) {
   res[3] = (int)kSmemBytes;
   res[4] = blocks;
   res[5] = kThreads;
+  res[6] = kMinBlocks;
   return err;
 }
 
@@ -378,8 +380,9 @@ extern "C" int nqt_jbu_filter(const void* hr, const void* proj, const void* spat
   return (int)launch<float, false>(hr, proj, sp, tp, o, n, h, w, c, groups, cg, s);
 }
 
-// res[0..5]: registers a thread, local memory bytes a thread, static shared
-// memory, dynamic shared memory, resident blocks an SM, threads a block, of
+// res[0..6]: registers a thread, local memory bytes a thread, static shared
+// memory, dynamic shared memory, resident blocks an SM, threads a block, the
+// launch bounds' minimum blocks an SM, of
 // the variant nqt_jbu_filter launches for (is_bf16, vec).
 extern "C" int nqt_jbu_attrs(int is_bf16, int vec, int* res) {
   if (is_bf16) return (int)attrs<__nv_bfloat16, false>(res);

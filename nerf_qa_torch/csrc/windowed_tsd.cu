@@ -395,6 +395,7 @@ cudaError_t attrs(int* res) {
   res[3] = (int)S::SMEM_BYTES;
   res[4] = blocks;
   res[5] = S::THREADS;
+  res[6] = min_blocks<S>();
   return err;
 }
 
@@ -460,9 +461,9 @@ extern "C" int nqt_windowed_tsd(const void* fx, const void* fy, const void* ps,
   return (int)dispatch(is_bf16, vec, shape, call);
 }
 
-// res[0..5]: registers a thread, local memory bytes a thread, static shared
-// memory, dynamic shared memory, resident blocks an SM, threads a block, of
-// the variant nqt_windowed_tsd launches for (is_bf16, vec, shape).
+// res[0..6]: registers a thread, local memory bytes a thread, static shared
+// memory, dynamic shared memory, resident blocks an SM, threads a block, the
+// launch bounds' minimum blocks an SM, of the variant nqt_windowed_tsd launches for (is_bf16, vec, shape).
 extern "C" int nqt_windowed_tsd_attrs(int is_bf16, int vec, int shape, int* res) {
   if (shape != 0 && shape != 1) return (int)cudaErrorInvalidValue;
   return (int)dispatch(is_bf16, vec, shape, AttrsCall{res});

@@ -2,11 +2,12 @@
 
 Counterpart of ``nerf_qa_tpu/data/datasets.py``, the part NR training
 uses: the cumulative frame-count indexing (data.py:92-93, 126-133),
-``parse_list_column`` and ``NerfNRQADataset`` in ``gt`` mode
-(data.py:431-554): the render and its ground truth, paired rotation and
-0.7 center crop (+ random crop when training), resized to the network's
-two input sizes, with the per-frame DISTS std / mean targets. The
-score-map mode (ROADMAP Queue 1 item 11) raises.
+``parse_list_column`` and ``NerfNRQADataset`` in ``render`` and ``gt``
+mode, which read the same (data.py:431-554): the render and its ground
+truth, paired rotation and 0.7 center crop (+ random crop when
+training), resized to the network's two input sizes, with the per-frame
+DISTS std / mean targets. The score-map mode (ROADMAP Queue 1 item 11)
+raises.
 
 Rows are plain dicts (the scores CSV read with the ``csv`` module, as
 ``tools/train_nr.py`` does), where the JAX package takes a pandas frame.
@@ -67,15 +68,16 @@ class FrameIndexed:
 
 
 class NerfNRQADataset(FrameIndexed):
-    """NR dataset, ``gt`` mode: (gt at render_size², {"256x256": render at
-    render_size², "224x224": render at sem_size²}, DISTS std, DISTS mean,
-    video index, frame) per frame (data.py:431-554)."""
+    """NR dataset, ``render`` (the default) or ``gt`` mode, which read the
+    same: (gt at render_size², {"256x256": render at render_size²,
+    "224x224": render at sem_size²}, DISTS std, DISTS mean, video index,
+    frame) per frame (data.py:431-554)."""
 
     def __init__(
         self,
         rows: Sequence[Mapping],
         dir: str,
-        mode: str = "gt",
+        mode: str = "render",
         is_train: bool = False,
         aug_crop_scale: float = 0.8,
         aug_rot_deg: float = 30.0,
@@ -83,10 +85,10 @@ class NerfNRQADataset(FrameIndexed):
         render_size: int = 256,
         sem_size: int = 224,
     ):
-        if mode != "gt":
+        if mode not in ("render", "gt"):
             raise NotImplementedError(
-                f"NR dataset mode {mode!r}: only 'gt' is ported; the "
-                "score-map mode waits for ROADMAP Queue 1 item 11")
+                f"NR dataset mode {mode!r}: only 'render' and 'gt' are "
+                "ported; the score-map mode waits for ROADMAP Queue 1 item 11")
         self.dir = dir
         self.rows = list(rows)
         self.mode = mode

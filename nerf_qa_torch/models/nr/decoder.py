@@ -89,12 +89,14 @@ class RefineUp(nn.Module):
                                    dropout_rate=dropout_rate, dtype=dtype)
 
     def forward(self, input_feats: torch.Tensor, dists_feat: torch.Tensor,
-                sem_feat: torch.Tensor, generator: torch.Generator | None = None
-                ) -> tuple[torch.Tensor, torch.Tensor]:
+                sem_feat: torch.Tensor, generator: torch.Generator | None = None,
+                resample: bool = True
+                ) -> tuple[torch.Tensor | None, torch.Tensor]:
         """input_feats NCHW (channels_last); dists_feat and sem_feat NHWC.
         Returns (the next stage's NCHW map, the predicted DISTS feature:
         an NHWC view of the pre-resample map's leading channels, in the
-        stage's dtype)."""
+        stage's dtype). ``resample=False`` skips ``upsample_layer`` and
+        returns ``(None, pred)``."""
         guide = torch.cat([dists_feat.float(), sem_feat.float()], dim=-1)
         x = (input_feats * self.refine_scale1 + nchw(guide)).to(self.dtype)
         h = x
@@ -102,12 +104,20 @@ class RefineUp(nn.Module):
             h = layer(h, generator)
         feature_map = self.refine_scale2 * h + x
         pred = nhwc(feature_map[:, : self.feature_chns])
+        if not resample:
+            return None, pred
         return self.upsample_layer(feature_map, generator), pred
 
 
 class NRDecoder(nn.Module):
     """Transformer context mixer + RefineUp cascade (model_nr_v8.py:190-236),
     v7/v8.
+
+    The last stage's resampled map is read only by the v5/v6
+    score-regression head (decoder.py:347-353, ROADMAP Queue 1 item 11),
+    so the v7/v8 cascade does not compute it: ``decoder.5.upsample_layer``
+    never runs, as in the JAX package's jit lowering, and keeps its
+    weights so that reference checkpoints load with ``strict=True``.
 
     ``qkv_bias`` and ``layer_scale`` default to the reference decoder's
     blocks (no qkv bias, Identity LayerScale); a checkpoint that carries
@@ -199,8 +209,9 @@ class NRDecoder(nn.Module):
             trans_decode = trans_decode + cfg.refine_scale4 * nhwc(mixed).float()
         feature_map = nchw(torch.cat([top, trans_decode], dim=-1))
         predicted = []
+        last = len(self.decoder) - 1
         for i, stage in enumerate(self.decoder):
             feature_map, pred = stage(feature_map, dists_feats[len(dists_feats) - 1 - i],
-                                      sem_pyramid[i], generator)
+                                      sem_pyramid[i], generator, resample=i < last)
             predicted.append(pred)
         return list(reversed(predicted)), None

@@ -115,7 +115,7 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_channel_norm.restype = ci
             lib.nqt_channel_norm_bwd.argtypes = [vp, vp, vp, vp, vp, vp, vp,
                                                  vp, ci, ci, ctypes.c_float,
-                                                 ci, ci, ci, ci, vp]
+                                                 ci, ci, ci, vp]
             lib.nqt_channel_norm_bwd.restype = ci
             lib.nqt_jbu_filter.argtypes = [vp, vp, vp, vp, vp, ci, ci, ci,
                                            ci, ci, ci, ci, ci, vp]
@@ -131,6 +131,8 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_jbu_attrs.restype = ci
             lib.nqt_windowed_tsd_attrs.argtypes = [ci, ci, ci, ip]
             lib.nqt_windowed_tsd_attrs.restype = ci
+            lib.nqt_channel_norm_bwd_attrs.argtypes = [ci, ci, ip]
+            lib.nqt_channel_norm_bwd_attrs.restype = ci
             lib.nqt_error_string.argtypes = [ci]
             lib.nqt_error_string.restype = ctypes.c_char_p
             _lib = lib
@@ -147,13 +149,15 @@ def sm_count(device) -> int:
 
 
 ATTR_KEYS = ("registers", "local_bytes", "static_smem_bytes",
-             "dynamic_smem_bytes", "blocks_per_sm", "threads")
+             "dynamic_smem_bytes", "blocks_per_sm", "threads",
+             "min_blocks_per_sm")
 
 
 def kernel_attrs(fn, *args: int) -> dict[str, int]:
     """The attributes a kernel's ``nqt_*_attrs`` C function reports for
-    the variant its arguments name (``cudaFuncGetAttributes`` and
-    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    the variant its arguments name (``cudaFuncGetAttributes``,
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` and the minimum
+    blocks an SM of the kernel's ``__launch_bounds__``)."""
     res = (ctypes.c_int * len(ATTR_KEYS))()
     check(load_library(), fn(*args, res), fn.__name__)
     return dict(zip(ATTR_KEYS, res))

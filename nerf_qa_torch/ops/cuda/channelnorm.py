@@ -12,10 +12,12 @@ the backward differentiates the erf GELU.
 
 Both kernels are bounded by device memory: the forward reads and writes
 P·C elements, the backward reads x and the output gradient and writes dx
-(3·P·C elements); one warp per row keeps the row in registers. The
-backward's dscale and dbias are column sums over every row: a fixed grid
-of blocks writes per-block partial sums and a second launch adds them in
-a fixed order, so they repeat bit for bit.
+(3·P·C elements). The forward keeps a row in one warp's registers. In
+the backward each warp streams its rows through its own ring in shared
+memory with 16-byte copies whatever C's parity, on a grid that
+:func:`_bwd_plan` sizes to the call; its dscale and dbias are column
+sums over every row, written as per-block partial sums and added by a
+second launch in a fixed order, so they repeat bit for bit.
 
 :func:`channel_norm_act` takes a CPU tensor through
 :func:`channel_norm_act_plain` (its gradient comes from autograd) and a
@@ -25,7 +27,9 @@ between them: a kernel that does not build or launch raises.
 """
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -37,8 +41,8 @@ launches = 0
 bwd_launches = 0
 
 MAX_CHANNELS = 1024  # 32 values a lane, one warp a row
-ROWS_PER_BLOCK = 8  # warps of a block (csrc/channelnorm.cu kWarps)
-BWD_BLOCKS_PER_SM = 4  # the backward's fixed grid: 4 blocks per SM
+BWD_WARPS = 8  # warps of a backward block (csrc kWarps), a row each at a time
+BWD_MIN_ROWS = 2  # rows a backward warp takes at least: few partials
 _DTYPES = (torch.float32, torch.bfloat16)
 _SQRT_HALF = math.sqrt(0.5)
 _INV_SQRT_2PI = 1.0 / math.sqrt(2.0 * math.pi)
@@ -144,6 +148,37 @@ def _fwd_kernel(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out
 
 
+class BwdPlan(NamedTuple):
+    """A backward launch: ``blocks`` blocks of BWD_WARPS warps; warp w of
+    block b takes rows b · BWD_WARPS + w, then every blocks · BWD_WARPS-th
+    row after it; each block writes one (2, C) partial into a buffer of
+    shape ``partial``."""
+    blocks: int
+    partial: tuple[int, int, int]
+
+
+def _bwd_plan(rows: int, c: int, sms: int, blocks_per_sm: int) -> BwdPlan:
+    """The backward's grid for one call: at least BWD_MIN_ROWS rows a
+    warp, so a small call writes few partials, and at most one resident
+    wave, so every block runs at once."""
+    blocks = -(-rows // (BWD_WARPS * BWD_MIN_ROWS))
+    blocks = max(1, min(blocks, blocks_per_sm * sms))
+    return BwdPlan(blocks, (blocks, 2, c))
+
+
+@functools.cache
+def _bwd_blocks_per_sm(device: torch.device, is_bf16: bool, c: int) -> int:
+    """Resident backward blocks an SM at width ``c`` on ``device``, from
+    the occupancy calculator (``nqt_channel_norm_bwd_attrs``), once per
+    device, dtype and width."""
+    from nerf_qa_torch.ops.cuda import build
+
+    lib = build.load_library()
+    with torch.cuda.device(device):
+        return build.kernel_attrs(lib.nqt_channel_norm_bwd_attrs, int(is_bf16),
+                                  c)["blocks_per_sm"]
+
+
 def channel_norm_act_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
                          bias: torch.Tensor, *, gelu: bool = False,
                          eps: float = 1e-5
@@ -157,32 +192,38 @@ def channel_norm_act_bwd(x: torch.Tensor, g: torch.Tensor, scale: torch.Tensor,
     if g.shape != x.shape or g.device != x.device:
         raise ValueError(f"g {tuple(g.shape)} on {g.device} must match x "
                          f"{tuple(x.shape)} on {x.device}")
-    g = g.to(x.dtype)
+    if g.dtype != x.dtype:
+        g = g.to(x.dtype)
     if x.device.type == "cpu":
         return channel_norm_act_bwd_plain(x, g, scale, bias, gelu=gelu, eps=eps)
     _check_card(x, c)
     from nerf_qa_torch.ops.cuda import build
 
-    g = g.contiguous()
-    dx = torch.empty_like(x)
-    dscale = torch.zeros(c, dtype=torch.float32, device=x.device)
-    dbias = torch.zeros(c, dtype=torch.float32, device=x.device)
     rows = x.numel() // c
     if rows == 0:
-        return dx, dscale, dbias
-    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
-    blocks = min(-(-rows // ROWS_PER_BLOCK), BWD_BLOCKS_PER_SM * sms)
-    partial = torch.empty((blocks, 2, c), dtype=torch.float32, device=x.device)
+        zeros = torch.zeros(c, dtype=torch.float32, device=x.device)
+        return torch.empty_like(x), zeros, zeros.clone()
+    # the host work of a call is as long as the kernel's at the small
+    # widths: no copies or allocations beyond the outputs and the partials
+    if not g.is_contiguous():
+        g = g.contiguous()
+    dx = torch.empty_like(x)
+    # the finalize launch writes every element
+    dscale = torch.empty(c, dtype=torch.float32, device=x.device)
+    dbias = torch.empty(c, dtype=torch.float32, device=x.device)
+    is_bf16 = x.dtype == torch.bfloat16
+    plan = _bwd_plan(rows, c, build.sm_count(x.device),
+                     _bwd_blocks_per_sm(x.device, is_bf16, c))
+    partial = torch.empty(plan.partial, dtype=torch.float32, device=x.device)
     lib = build.load_library()
-    scale = scale.detach().float().contiguous()
-    bias = bias.detach().float().contiguous()
+    scale = scale.float().contiguous()
+    bias = bias.float().contiguous()
     with torch.cuda.device(x.device):
         code = lib.nqt_channel_norm_bwd(
             x.data_ptr(), g.data_ptr(), scale.data_ptr(), bias.data_ptr(),
             dx.data_ptr(), partial.data_ptr(), dscale.data_ptr(),
-            dbias.data_ptr(), rows, c, float(eps), int(gelu),
-            int(x.dtype == torch.bfloat16), _vec(c, x, g, dx), blocks,
-            torch.cuda.current_stream().cuda_stream)
+            dbias.data_ptr(), rows, c, float(eps), int(gelu), int(is_bf16),
+            plan.blocks, torch.cuda.current_stream().cuda_stream)
     build.check(lib, code, "nqt_channel_norm_bwd")
     bwd_launches += 1
     return dx, dscale, dbias

@@ -172,24 +172,53 @@ def _cn_abs_terms(x, g, scale, bias, gelu, eps=1e-5):
     return (dy * xh).abs().sum(0), dy.abs().sum(0)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("gelu", [False, True])
-@pytest.mark.parametrize("c", [384, 387, 448, 512, 640, 896])
-def test_channelnorm_bwd_kernel_matches_plain(c, gelu, dtype):
-    # 4099 rows (a multiple of no tile): dx within the forward's tolerance,
-    # dscale and dbias within 1e-5 of the sums of their terms' magnitudes
-    # (fp32 sums over the rows in another order)
-    x, g, scale, bias = _cn_bwd_inputs(4099, c, dtype, c)
+def _cn_bwd_vs_plain(x, g, scale, bias, gelu):
+    """The backward kernel against its plain version: dx within the
+    forward's tolerance, dscale and dbias within 1e-5 of the sums of their
+    terms' magnitudes (fp32 sums over the rows in another order). Returns
+    the kernel's outputs."""
     before = channelnorm.bwd_launches
     dx, ds, db = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=gelu)
     torch.cuda.synchronize()
-    assert channelnorm.bwd_launches == before + 1 and dx.dtype == dtype
+    assert channelnorm.bwd_launches == before + 1 and dx.dtype == x.dtype
     pdx, pds, pdb = channelnorm.channel_norm_act_bwd_plain(x, g, scale, bias, gelu=gelu)
-    rtol, atol = CN_TOL[dtype]
+    rtol, atol = CN_TOL[x.dtype]
     torch.testing.assert_close(dx.float(), pdx.float(), rtol=rtol, atol=atol)
     abs_s, abs_b = _cn_abs_terms(x, g, scale, bias, gelu)
     assert bool(((ds - pds).abs() <= 1e-5 * abs_s + 1e-7).all())
     assert bool(((db - pdb).abs() <= 1e-5 * abs_b + 1e-7).all())
+    return dx, ds, db
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("gelu", [False, True])
+@pytest.mark.parametrize("rows", [1, 7, 4099, 262_144])
+@pytest.mark.parametrize("c", [1, 5, 33, 384, 387, 448, 512, 640, 896, 1024])
+def test_channelnorm_bwd_kernel_matches_plain(c, rows, gelu, dtype):
+    # every kernel variant's width range, odd and even C, a part tile,
+    # a row count that is a multiple of no tile and the training step's
+    # largest
+    _cn_bwd_vs_plain(*_cn_bwd_inputs(rows, c, dtype, c + rows), gelu)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c", [(1001, 387), (1000, 387), (1001, 448), (7, 5)])
+def test_channelnorm_bwd_kernel_misaligned_view(rows, c, dtype):
+    # x and g one and two elements past a 16-byte boundary, each ending at
+    # its allocation's end: every row's edges take the word copies. At an
+    # odd element count one of the two ends 2 bytes into a word (bf16),
+    # whose copy must stop at the tensor's end. The results equal those of
+    # aligned copies bit for bit
+    x, g, scale, bias = _cn_bwd_inputs(rows, c, dtype, 4)
+    xm = torch.empty(x.numel() + 1, dtype=dtype, device="cuda")[1:].view_as(x)
+    gm = torch.empty(g.numel() + 2, dtype=dtype, device="cuda")[2:].view_as(g)
+    xm.copy_(x)
+    gm.copy_(g)
+    assert xm.data_ptr() % 16 and gm.data_ptr() % 16 and xm.is_contiguous()
+    got = _cn_bwd_vs_plain(xm, gm, scale, bias, True)
+    want = channelnorm.channel_norm_act_bwd(x, g, scale, bias, gelu=True)
+    for u, v in zip(got, want):
+        assert torch.equal(u, v)
 
 
 def test_channelnorm_bwd_kernel_repeats_bit_for_bit():
@@ -304,11 +333,17 @@ def test_kernel_attributes_show_no_spills():
     variants += [(lib.nqt_windowed_tsd_attrs, (bf, vec, s), shp.blocks_per_sm)
                  for bf in (0, 1) for vec in (0, 1)
                  for s, shp in enumerate(windowed_tsd.SHAPES)]
+    # every ChannelNorm backward variant at its widest C (its grid comes
+    # from the occupancy calculator, so only its launch bounds bind it)
+    variants += [(lib.nqt_channel_norm_bwd_attrs, (bf, c), 1)
+                 for bf in (0, 1) for c in range(32, channelnorm.MAX_CHANNELS + 1, 32)]
     for fn, args, blocks in variants:
         a = build.kernel_attrs(fn, *args)
         assert a["local_bytes"] == 0, (fn.__name__, args, a)
-        # the plan's blocks an SM fit the kernel's registers and shared memory
-        assert a["blocks_per_sm"] >= blocks, (fn.__name__, args, a)
+        # the plan's blocks an SM and those the kernel is built for fit its
+        # registers and shared memory
+        assert a["blocks_per_sm"] >= max(blocks, a["min_blocks_per_sm"]), (
+            fn.__name__, args, a)
 
 
 def test_jbu_module_routes_cuda_tensors_to_the_kernel():

@@ -1,16 +1,19 @@
-"""Launch plans of the port's JBU and windowed T/S kernels, on the CPU.
+"""Launch plans of the port's JBU, windowed T/S and ChannelNorm backward
+kernels, on the CPU.
 
-The plans are plain Python (tiles, channel groups, copy path); the kernels
-that run them need the card (tests/test_torch_kernels.py). Each plan must
-cover every output pixel exactly once, partition the channels, and stay
-within the grid's limits. The shared-memory sizes live only in the kernel
+The plans are plain Python (tiles, channel groups, copy path, grid); the
+kernels that run them need the card (tests/test_torch_kernels.py). Each
+plan must cover every output pixel (or row) exactly once, partition the
+channels, and stay within the grid's limits. The shared-memory sizes live only in the kernel
 sources, held by their static_asserts, and the card's test reads them
 (test_kernel_attributes_show_no_spills).
 """
+from types import SimpleNamespace
+
 import pytest
 import torch
 
-from nerf_qa_torch.ops.cuda import jbu, windowed_tsd as tsd
+from nerf_qa_torch.ops.cuda import build, channelnorm as cn, jbu, windowed_tsd as tsd
 from nerf_qa_torch.ops.windowed import gaussian_taps
 
 GRID_X_MAX = 2**31 - 1
@@ -128,3 +131,54 @@ def test_jbu_plan_splits_small_levels_only():
 ])
 def test_jbu_plan_copy_path(dtype, c, aligned, vec):
     assert jbu._plan(2, 40, 40, c, dtype, aligned).vec is vec
+
+
+# the NR training step's backward calls (rows at batch 4) and edge shapes
+CN_BWD_SHAPES = [(1024, 384), (1024, 896), (4096, 896), (16384, 640),
+                 (65536, 512), (262_144, 448), (262_144, 387), (1, 1),
+                 (7, 5), (8, 33), (9, 1024), (4099, 387), (33, 448)]
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("rows,c", CN_BWD_SHAPES)
+def test_cn_bwd_plan_covers_each_row_once(rows, c, blocks_per_sm):
+    plan = cn._bwd_plan(rows, c, 132, blocks_per_sm)
+    warps = plan.blocks * cn.BWD_WARPS
+    cover = torch.zeros(rows, dtype=torch.int32)
+    for w in range(warps):  # warp w of the grid: rows w, w + warps, ...
+        cover[w::warps] += 1
+    assert bool((cover == 1).all())
+    assert plan.blocks == 1 or (plan.blocks - 1) * cn.BWD_WARPS < rows  # no idle block
+    # at most one resident wave; partial buffer of one (2, C) a block
+    assert plan.blocks <= blocks_per_sm * 132
+    assert plan.partial == (plan.blocks, 2, c)
+
+
+def test_cn_bwd_plan_sizes_the_grid_to_the_call():
+    # small calls take few blocks (at least BWD_MIN_ROWS rows a warp), the
+    # 16,384-row and larger calls one full wave
+    assert cn._bwd_plan(1, 384, 132, 2).blocks == 1
+    assert cn._bwd_plan(1024, 896, 132, 2).blocks == 1024 // (8 * cn.BWD_MIN_ROWS)
+    assert cn._bwd_plan(4096, 896, 132, 2).blocks == 4096 // (8 * cn.BWD_MIN_ROWS)
+    assert cn._bwd_plan(4096, 896, 132, 1).blocks == 132
+    for rows in (16384, 65536, 262_144):
+        assert cn._bwd_plan(rows, 448, 132, 2).blocks == 264
+    assert cn._bwd_plan(262_144, 448, 264, 2).blocks == 528
+
+
+def test_sm_count_is_read_once_per_device(monkeypatch):
+    calls = []
+
+    def props(device):
+        calls.append(device)
+        return SimpleNamespace(multi_processor_count=132)
+
+    monkeypatch.setattr(torch.cuda, "get_device_properties", props)
+    build.sm_count.cache_clear()
+    try:
+        for _ in range(3):
+            assert build.sm_count(torch.device("cuda", 0)) == 132
+        assert build.sm_count(torch.device("cuda", 1)) == 132
+        assert calls == [torch.device("cuda", 0), torch.device("cuda", 1)]
+    finally:
+        build.sm_count.cache_clear()

@@ -108,6 +108,50 @@ def test_decoder_matches_jax_with_random_params(jax_nr, renders):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=1e-4, atol=1e-4)
 
 
+LAST_RESAMPLE = "decoder.5.upsample_layer"
+
+
+def test_v8_forward_skips_the_last_resample(port_nr, renders):
+    # the v7/v8 cascade never reads the last stage's resampled map: its
+    # layer does not run, every other ChannelNorm runs once
+    from nerf_qa_torch.models.nr.layers import ChannelNorm
+
+    ran = {}
+    mods = {n: m for n, m in port_nr.decoder.named_modules()
+            if isinstance(m, ChannelNorm) or n == LAST_RESAMPLE}
+    assert len(mods) == 20  # 19 ChannelNorms and the resample layer
+    handles = [m.register_forward_hook(
+        lambda mod, args, out, n=n: ran.__setitem__(n, ran.get(n, 0) + 1))
+        for n, m in mods.items()]
+    r256, r224 = renders
+    try:
+        with torch.no_grad():
+            port_nr(torch.from_numpy(r256), torch.from_numpy(r224))
+    finally:
+        for h in handles:
+            h.remove()
+    skipped = {n for n in mods if n.startswith(LAST_RESAMPLE)}
+    assert skipped == {LAST_RESAMPLE, LAST_RESAMPLE + ".norm_layer"}
+    assert ran == {n: 1 for n in mods if n not in skipped}
+
+
+def test_decoder_keeps_the_last_resample_weights(jax_nr):
+    # the skipped layer's weights stay in the reference layout, so a
+    # checkpoint loads with strict=True, and a dict without them does not
+    _, dec_params = jax_nr
+    sd = from_jax.nr_decoder_state_dict_from_jax(_np(dec_params))
+    keys = {k for k in sd if k.startswith(LAST_RESAMPLE + ".")}
+    assert keys == {f"{LAST_RESAMPLE}.{k}" for k in (
+        "conv.weight", "conv.bias", "norm_layer.norm.weight", "norm_layer.norm.bias")}
+    decoder = NRDecoder.from_state_dict(sd, nr_config(TConfig))
+    assert decoder.state_dict().keys() == sd.keys()
+    for k in keys:
+        torch.testing.assert_close(decoder.state_dict()[k], sd[k], rtol=0, atol=0)
+    with pytest.raises(RuntimeError, match="Missing key"):
+        NRDecoder.from_state_dict({k: v for k, v in sd.items() if k not in keys},
+                                  nr_config(TConfig))
+
+
 def test_encode_shapes_and_frozen_encoder(port_nr, renders):
     r256, r224 = renders
     feats = port_nr.encode(torch.from_numpy(r256), torch.from_numpy(r224))

@@ -62,12 +62,12 @@ def nr_tree(tmp_path_factory):
     return root, csv
 
 
-def _both_datasets(nr_tree, is_train, seed=5):
+def _both_datasets(nr_tree, is_train, seed=5, mode="gt"):
     root, csv = nr_tree
     kw = dict(is_train=is_train, render_size=RENDER, sem_size=SEM)
-    j = jdatasets.NerfNRQADataset(pd.read_csv(csv), root, mode="gt",
+    j = jdatasets.NerfNRQADataset(pd.read_csv(csv), root, mode=mode,
                                   rng=np.random.default_rng(seed), **kw)
-    t = tdatasets.NerfNRQADataset(ttrain_cli.read_rows(csv), root, mode="gt",
+    t = tdatasets.NerfNRQADataset(ttrain_cli.read_rows(csv), root, mode=mode,
                                   rng=np.random.default_rng(seed), **kw)
     return j, t
 
@@ -108,11 +108,14 @@ def test_scene_balanced_sampler_matches_jax():
         assert list(t) == list(j)
 
 
-@pytest.mark.parametrize("is_train", [False, True])
-def test_nr_dataset_matches_jax(nr_tree, is_train):
+@pytest.mark.parametrize("is_train,mode", [
+    (False, "gt"), (True, "gt"), (False, "render"), (True, "render")],
+    ids=["False", "True", "False-render", "True-render"])
+def test_nr_dataset_matches_jax(nr_tree, is_train, mode):
     # the same frames, rotation, crops and resizes from the same seed, in
-    # the same order: equal arrays
-    j, t = _both_datasets(nr_tree, is_train)
+    # the same order: equal arrays ('render', the JAX class's default,
+    # reads as 'gt')
+    j, t = _both_datasets(nr_tree, is_train, mode=mode)
     assert len(t) == len(j) == 4
     assert t.get_scene_indices() == j.get_scene_indices()
     for idx in (0, 3, 1, 2, 0):
