@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
 ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives four paths at full width and
+plain PyTorch version on the card. It drives five paths at full width and
 checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
@@ -29,9 +29,21 @@ checks that each went through its kernels:
   version, steps/s and frames/s in turns, a per-layer breakdown, the
   profiler's top kernels, the card's fp32 step against the CPU path at a
   small depth, and the training CLI (``tools.train_nr``) for an epoch, a
-  resume and ``score --nr`` of its checkpoint.
+  resume and ``score --nr`` of its checkpoint;
+* FR training through ``FRTrainer`` (VGG16 at full width, batch 32 of 256²
+  pairs made on the card, the logistic head, both pyramid dtypes): the
+  moments kernel, 6 launches per step, cache batch and eval batch; a
+  falling loss, one step's loss and head and α/β gradients against the
+  eager statistics, the cached step against the image step, the card's
+  fp32 step against the CPU path, frames/s in turns, cache-build frames/s,
+  cached-epoch ms per step, the step's per-range breakdown and idle share;
+  the FR tools (``run_fr`` with and without the stats cache, ``prep_fr``
+  with the square and full-size policies, whose ADISTS column takes the
+  windowed T/S kernel, ``reeval`` of the trained checkpoint); and the FR
+  quality certificate (``quality_demo --kind fr``, seeds 0-2, held to
+  cv_plcc >= 0.90, cv_srcc >= 0.80, cv_ktcc >= 0.60).
 
-It checks and times each kernel at its path's shapes against its plain
+It checks and times each kernel at its paths' shapes against its plain
 version, with its bound and a PyTorch yardstick (the ChannelNorm
 backward also with its device time from the profiler); prints the
 registers, local memory, shared memory and blocks per SM of the T/S,
@@ -139,6 +151,42 @@ TRAIN_PLAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # card fp32 training step vs the CPU path: each decoder gradient relative
 # to its largest value (the CPU parity tests' fp32 bar against JAX)
 TRAIN_CPU_GRAD_RTOL = 1e-3
+# FR training: FRTrainer at the FR device batch (DEVICE_BATCH_SIZE_FR = 32
+# pairs, one pyramid batch of 64 images at 256²) with run_fr's defaults (the
+# logistic head, lr 1e-4, the exponential schedule with its one-epoch
+# linear warm-up) at FR_STEPS_PER_EPOCH steps an epoch (3,200 pairs). At a
+# constant 1e-4 from the first step, Adam moves each of the 2,950 α/β
+# (~3e-4 each) by about 1e-4 at once and the loss of a fixed batch jumps
+# and oscillates; the warm-up is what the CLI runs
+FR_BATCH = 32
+FR_LR = 1e-4
+FR_STEPS_PER_EPOCH = 100
+FR_COUNTED = 3  # steps of the counted run
+FR_TIMED = 5  # steps per timed turn
+FR_CACHE_BATCHES = 4  # batches of the timed cache build and cached epoch
+FR_DTYPES = ("float32", "bfloat16")  # the CLI default, then the fast pyramid
+# launches per FR step, cache batch and eval batch: the moments kernel once
+# a stage on the dist and ref halves of one pyramid batch
+FR_LAUNCHES = {"moments": 6, "jbu": 0, "channelnorm": 0, "channelnorm_bwd": 0,
+               "windowed_tsd": 0}
+# the FR step's profiler ranges (models/fr.pair_stats, FRTrainer)
+FR_LAYERS = ("pyramid_ms", "stats_ms", "head_loss_ms", "backward_ms",
+             "optimizer_ms", "other_ms")
+# one FR step with the moments kernel against the eager statistics from
+# identical params: both routes take the same pyramid features and differ
+# only in how the moments are summed, so the bars sit well under NR's
+# TRAIN_PLAIN_* (measured on an H100: loss 6.0e-8 fp32, 4.0e-7 bf16; each
+# gradient 1.1e-5 to 1.5e-5 of its group's largest in both dtypes)
+FR_PLAIN_LOSS_ATOL = {"float32": 1e-5, "bfloat16": 1e-5}
+FR_PLAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 1e-3}
+# the cached step against the image step on the same batch, fp32: the bars
+# of the JAX package's tests/test_fr_cached_stats.py:55-64
+FR_CACHED_LOSS_ATOL = 1e-5
+FR_CACHED_PARAM_ATOL = 1e-6
+# the FR quality certificate (tests/test_quality_demo.py:39-49)
+FR_QUALITY_ARGS = ("--epochs", "5", "--folds", "4", "--scenes", "8", "--methods", "5",
+                   "--frames", "2", "--batch-size", "16")
+FR_QUALITY_MIN = {"cv_plcc": 0.90, "cv_srcc": 0.80, "cv_ktcc": 0.60}
 
 
 def phase(name: str, **fields) -> None:
@@ -189,6 +237,17 @@ def time_ms(fn, iters: int = 20) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def moments_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Least time for one moments call: both inputs read once, the (N, 5,
+    C) fp32 sums written once; 5 multiply-adds per element pair at the
+    fp32 rate."""
+    n, h, w, c = shape
+    elems = n * h * w * c
+    t_bytes = (2 * elems * itemsize + n * 5 * c * 4) / PEAK_BYTES_PER_S * 1e3
+    t_ops = 10 * elems / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def feature_pair(shape, dtype, gen):
@@ -878,7 +937,8 @@ def profile_step(fn) -> dict:
 def range_times(prof) -> dict:
     """Per-layer times of a profiled call from the port's own profiler
     ranges (``record_function("nr.*")`` in ``NRModel.losses`` and
-    ``NRTrainer.train_step``): each range's host span, and the device time
+    ``NRTrainer.train_step``, ``"fr.*"`` in ``models/fr.pair_stats`` and
+    ``FRTrainer``): each range's host span, and the device time
     of the kernels, copies and sets launched inside it. A kernel belongs
     to the range whose host span holds its launch call, on any thread
     (autograd launches the backward from its own); what no range holds is
@@ -890,7 +950,7 @@ def range_times(prof) -> dict:
             events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"].split(".", 1)[1] + "_ms")
              for e in events if e.get("cat") == "user_annotation"
-             and str(e.get("name", "")).startswith("nr.")]
+             and str(e.get("name", "")).startswith(("nr.", "fr."))]
     if not spans:
         return {}
     launched = {e["args"]["correlation"]: e["ts"] for e in events
@@ -1496,6 +1556,332 @@ def train_cli_run() -> None:
           epochs=[line for line in text.splitlines() if line.startswith(("epoch", "val"))],
           score_nr=result)
 
+def fr_batch(gen, n: int, hw: int):
+    """n (dist, ref) pairs of hw² renders made on the card, the noise level
+    rising across the batch, and MOS-like targets that fall with it
+    (``make_fr_tree``'s rule) plus seeded noise."""
+    ref = torch.rand((n, hw, hw, 3), generator=gen, device="cuda")
+    sigma = torch.linspace(0.01, 0.3, n, device="cuda")
+    noise = torch.randn(ref.shape, generator=gen, device="cuda")
+    dist = (ref + sigma[:, None, None, None] * noise).clamp(0, 1)
+    jitter = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    return dist, ref, (5.0 - 12.0 * sigma + jitter).clamp(1, 5)
+
+
+def make_fr_trainer(vgg, dtype: str, stats_impl: str, device=None):
+    """FRTrainer with the CLI's logistic head and the bundled α/β, Adam at
+    FR_LR with the CLI's warm-up and exponential schedule."""
+    from nerf_qa_torch.config import DISTSConfig, FRModelConfig, TrainConfig
+    from nerf_qa_torch.train.fr_train import FRTrainer
+
+    cfg = FRModelConfig(regression_type="logistic",
+                        dists=DISTSConfig(compute_dtype=dtype, stats_impl=stats_impl))
+    return FRTrainer(vgg, cfg, TrainConfig(lr=FR_LR, batch_size=FR_BATCH),
+                     steps_per_epoch=FR_STEPS_PER_EPOCH, device=device)
+
+
+def fr_grads(trainer, params, dist, ref, targets) -> tuple[float, dict]:
+    """One FR step's loss and head and α/β gradients (no update), from
+    fresh copies of ``params``."""
+    p = trainer.to_device(params)
+    loss, _ = trainer.loss_fn(p, dist, ref, targets)
+    loss.backward()
+    grads = {f"head.{k}": v.grad for k, v in p["head"].items()}
+    grads.update(alpha=p["dists"].alpha.grad, beta=p["dists"].beta.grad)
+    return float(loss.detach()), grads
+
+
+def fr_grad_gaps(got: dict, want: dict) -> dict[str, float]:
+    """Each gradient's largest gap over the largest value of its group: α
+    and β each, the head's scalars together."""
+    head = max(float(v.abs().max()) for k, v in want.items() if k.startswith("head."))
+    return {k: float((got[k].cpu() - want[k].cpu()).abs().max())
+            / max(head if k.startswith("head.") else float(want[k].abs().max()), 1e-30)
+            for k in want}
+
+
+def fr_moments_timing(dtype: str, gen) -> dict:
+    """The moments kernel at the FR step's six stage shapes (FR_BATCH pairs
+    at 256²): its statistics held to its plain version's within RTOL / ATOL,
+    its time and the plain version's, with its bound."""
+    from nerf_qa_torch.ops.cuda import moments
+
+    rows, totals = [], {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for (h, w), c in zip(STAGE_HW, STAGE_C):
+        shape = (FR_BATCH, h, w, c)
+        fx, fy = feature_pair(shape, getattr(torch, dtype), gen)
+        err = check_close(moments.stats_from_sums(moments.moment_sums(fx, fy), h * w),
+                          moments.stats_from_sums(moments.moment_sums_plain(fx, fy), h * w),
+                          RTOL, ATOL, f"moments {shape} {dtype} vs plain")
+        bound_ms, by = moments_bound(shape, fx.element_size())
+        row = {"shape": list(shape), "max_abs_err": err,
+               "ms": time_ms(lambda: moments.moment_sums(fx, fy)),
+               "plain_ms": time_ms(lambda: moments.moment_sums_plain(fx, fy)),
+               "bound_ms": bound_ms, "bound_by": by}
+        for k in totals:
+            totals[k] += row[k]
+        rows.append(row)
+        del fx, fy
+    return dict(totals, per_stage=rows)
+
+
+def fr_train_path(vgg, gen) -> None:
+    """Phase fr_train_path: FRTrainer at full width (VGG16, all 1475
+    channels) on a fixed batch of FR_BATCH 256² pairs made on the card, in
+    both pyramid dtypes: one step's loss and gradients with the moments
+    kernel against the eager statistics from identical params, the cached
+    step against the image step (fp32), launches per step, cache batch and
+    eval batch, a falling loss over the counted steps, image-path frames/s
+    in turns (kernel, eager, eager, kernel), cache-build frames/s, cached
+    epoch ms per step, peak memory, the profiler's busy and idle share and
+    the step's per-range breakdown (``range_times``), and the moments
+    kernel at the step's shapes."""
+    dist, ref, targets = fr_batch(gen, FR_BATCH, 256)
+    vids = np.arange(FR_BATCH)
+    for dtype in FR_DTYPES:
+        trainer = make_fr_trainer(vgg, dtype, "kernel")
+        eager = make_fr_trainer(vgg, dtype, "eager")
+        per_pair = trainer.compute_dists_scores([(dist, ref, targets, vids)])
+        params, opt = trainer.init(np.array([per_pair[i] for i in range(FR_BATCH)]),
+                                   targets.cpu().numpy())
+        start = trainer.to_device(params)
+
+        def det_loss():
+            pred, _ = trainer.evaluate(params, dist, ref)
+            return float((pred - targets).abs().mean())
+
+        # the kernel against the eager statistics, one step from identical params
+        k_loss, k_grads = fr_grads(trainer, start, dist, ref, targets)
+        e_loss, e_grads = fr_grads(eager, start, dist, ref, targets)
+        loss_gap = abs(k_loss - e_loss)
+        gaps = fr_grad_gaps(k_grads, e_grads)
+        worst = max(gaps, key=gaps.get)
+        if not (loss_gap <= FR_PLAIN_LOSS_ATOL[dtype]
+                and gaps[worst] <= FR_PLAIN_GRAD_RTOL[dtype]):
+            raise AssertionError(f"FR training ({dtype}) kernel vs eager: loss gap "
+                                 f"{loss_gap}, gradient {worst} {gaps[worst]}")
+        cached = {}
+        if dtype == "float32":
+            # the cached step against the image step, from identical params
+            # and fresh optimizer states
+            cache = trainer.build_stats_cache([(dist, ref, targets, vids)])
+            p_img, p_c = trainer.to_device(start), trainer.to_device(start)
+            _, _, l_img, aux_img = trainer.train_step(
+                p_img, trainer.optimizer.init(p_img), dist, ref, targets)
+            _, _, l_c, aux_c = trainer.train_step_cached(
+                p_c, trainer.optimizer.init(p_c), cache["stats"], cache["targets"])
+            with torch.no_grad():
+                head_gap = max(float((p_img["head"][k] - p_c["head"][k]).abs().max())
+                               for k in p_img["head"])
+                ab_gap = max(float((a - b).abs().max())
+                             for a, b in zip(p_img["dists"], p_c["dists"]))
+            cached = {"loss_gap": abs(float(l_img) - float(l_c)), "head_gap": head_gap,
+                      "alpha_beta_gap": ab_gap,
+                      "pred_gap": float((aux_img[0] - aux_c[0]).abs().max())}
+            if not (cached["loss_gap"] <= FR_CACHED_LOSS_ATOL
+                    and cached["pred_gap"] <= FR_CACHED_LOSS_ATOL
+                    and max(head_gap, ab_gap) <= FR_CACHED_PARAM_ATOL):
+                raise AssertionError(f"FR cached step vs image step: {cached}")
+
+        loss_init = det_loss()
+        trainer.train_step(params, opt, dist, ref, targets)  # warm-up
+        loss_before = det_loss()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        step_losses = [float(trainer.train_step(params, opt, dist, ref, targets)[2])
+                       for _ in range(FR_COUNTED)]
+        counts = {"step": launch_counts()}
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        loss_after = det_loss()
+        reset_launches()
+        trainer.build_stats_cache([(dist, ref, targets, vids)])
+        counts["cache_batch"] = launch_counts()
+        reset_launches()
+        trainer.evaluate(params, dist, ref)
+        torch.cuda.synchronize()
+        counts["eval_batch"] = launch_counts()
+        want = {"step": {k: v * FR_COUNTED for k, v in FR_LAUNCHES.items()},
+                "cache_batch": FR_LAUNCHES, "eval_batch": FR_LAUNCHES}
+        if counts != want:
+            raise AssertionError(f"FR training ({dtype}) launches {counts}, expected {want}")
+        if not (all(math.isfinite(v) for v in step_losses)
+                and math.isfinite(loss_after) and loss_after < loss_before):
+            raise AssertionError(f"FR training ({dtype}) losses {step_losses}, "
+                                 f"{loss_before} -> {loss_after}")
+
+        # image-path frames/s in turns
+        rates = {"kernel": [], "eager": []}
+        for name, tr in (("kernel", trainer), ("eager", eager), ("eager", eager),
+                         ("kernel", trainer)):
+            start_ev = torch.cuda.Event(enable_timing=True)
+            end_ev = torch.cuda.Event(enable_timing=True)
+            start_ev.record()
+            for _ in range(FR_TIMED):
+                tr.train_step(params, opt, dist, ref, targets)
+            end_ev.record()
+            end_ev.synchronize()
+            rates[name].append(FR_BATCH * FR_TIMED / (start_ev.elapsed_time(end_ev) / 1e3))
+
+        # the stats cache (host copies included) and an epoch over it
+        batches = [(dist, ref, targets, vids + i * FR_BATCH) for i in range(FR_CACHE_BATCHES)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cache = trainer.build_stats_cache(batches)
+        cache_fps = FR_CACHE_BATCHES * FR_BATCH / (time.perf_counter() - t0)
+        order = np.random.default_rng(0).permutation(len(cache["targets"]))
+        t0 = time.perf_counter()
+        params, opt, _ = trainer.train_epoch_cached(params, opt, cache, order, FR_BATCH)
+        torch.cuda.synchronize()
+        cached_ms = (time.perf_counter() - t0) * 1e3 / FR_CACHE_BATCHES
+
+        prof = profile_step(lambda: trainer.train_step(params, opt, dist, ref, targets))
+        if set(prof.get("layers_device_ms", ())) != set(FR_LAYERS):
+            raise AssertionError(f"FR training ({dtype}) profiler ranges {prof}")
+        phase("fr_train_path", compute_dtype=dtype, batch=FR_BATCH, hw=[256, 256],
+              regression_type="logistic", lr=FR_LR, schedule="exp",
+              steps_per_epoch=FR_STEPS_PER_EPOCH, launches=counts,
+              counted_step_losses=step_losses, det_loss_init=loss_init,
+              det_loss_before=loss_before, det_loss_after=loss_after,
+              kernel_vs_eager_loss_gap=loss_gap,
+              kernel_vs_eager_worst_grad=[worst, gaps[worst]],
+              loss_atol=FR_PLAIN_LOSS_ATOL[dtype], grad_rtol=FR_PLAIN_GRAD_RTOL[dtype],
+              cached_vs_image=cached, frames_per_s=rates, cache_build_frames_per_s=cache_fps,
+              cached_epoch_ms_per_step=cached_ms, peak_mem_gib=peak,
+              moments_at_step=fr_moments_timing(dtype, gen), **prof)
+        del trainer, eager, cache
+        torch.cuda.empty_cache()
+
+
+def fr_train_cpu_parity(gen) -> None:
+    """Phase fr_train_cpu_parity: one fp32 FR step's loss and gradients at
+    64², batch 4, on the card under true fp32 (moments kernel) against the
+    port's CPU path (its plain version) from the same weights: the loss
+    within SCORE_ATOL, each gradient within TRAIN_CPU_GRAD_RTOL of the
+    largest of its group."""
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+    from nerf_qa_torch.config import true_fp32
+
+    dist, ref, targets = fr_batch(gen, 4, 64)
+    x = np.linspace(0.01, 0.3, 8)
+    y = 1.0 + 4.0 / (1.0 + np.exp((x - 0.15) / 0.04))
+    out = {}
+    with true_fp32():
+        for name, device, args in (("card", "cuda", (dist, ref, targets)),
+                                   ("cpu", "cpu", tuple(t.cpu() for t in (dist, ref, targets)))):
+            trainer = make_fr_trainer(resolve_vgg_params(seed=0), "float32", "kernel",
+                                      device=device)
+            params, _ = trainer.init(x, y)
+            reset_launches()
+            loss, grads = fr_grads(trainer, params, *args)
+            out[name] = (loss, grads, launch_counts())
+    (kl, kg, counts), (cl, cg, cpu_counts) = out["card"], out["cpu"]
+    gaps = fr_grad_gaps(kg, cg)
+    worst = max(gaps, key=gaps.get)
+    if counts != FR_LAUNCHES or any(cpu_counts.values()):
+        raise AssertionError(f"card launches {counts}, CPU launches {cpu_counts}")
+    if abs(kl - cl) > SCORE_ATOL or gaps[worst] > TRAIN_CPU_GRAD_RTOL:
+        raise AssertionError(f"FR training card vs CPU: loss {kl} vs {cl}, "
+                             f"gradient {worst} {gaps[worst]}")
+    phase("fr_train_cpu_parity", hw=[64, 64], batch=4, loss=kl, loss_gap=abs(kl - cl),
+          worst_grad=[worst, gaps[worst]], grad_rtol=TRAIN_CPU_GRAD_RTOL, launches=counts)
+
+
+def fr_cli_run() -> None:
+    """Phase fr_cli: on a synthetic FR tree (frames of 288 x 352, resized
+    to 256² by the loaders) in a temporary directory: ``run_fr`` with two
+    folds, two epochs and the stats cache, then one fold (the full-data
+    train, with a validation pass) for one epoch on the image path;
+    ``prep_fr`` with the square and full-size policies (DISTS and ADISTS);
+    ``reeval`` of the image run's checkpoint. Each returns 0, writes its
+    CSVs and launches the moments kernel; prep_fr launches the windowed T/S
+    kernel too."""
+    import io
+    import os
+
+    from nerf_qa_torch.tools import prep_fr, reeval, run_fr
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_fr_tree
+
+    calls = {}
+    text = io.StringIO()
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        scores = make_fr_tree(data, scenes=("lego", "truck", "ship", "fortress"),
+                              methods_per_scene=2, frames=4, hw=(288, 352))
+        common = ["--data-dir", data, "--scores-csv", scores, "--batch-size", "8",
+                  "--num-workers", "2"]
+        runs = (
+            ("run_fr_cached", run_fr.main,
+             common + ["--folds", "2", "--epochs", "2", "--cache-stats",
+                       "--output-dir", f"{tmp}/cv"],
+             [f"{tmp}/cv/{f}" for f in ("results_0.csv", "results_1.csv",
+                                        "results_cv.csv")]),
+            ("run_fr_image", run_fr.main,
+             common + ["--folds", "1", "--epochs", "1", "--val-scores-csv", scores,
+                       "--val-data-dir", data, "--output-dir", f"{tmp}/img"],
+             [f"{tmp}/img/results_val_1.csv"]),
+            ("prep_square", prep_fr.main,
+             ["--data-dir", data, "--scores-csv", scores, "--policy", "square",
+              "--output-csv", f"{tmp}/square.csv"], [f"{tmp}/square.csv"]),
+            ("prep_full_size", prep_fr.main,
+             ["--data-dir", data, "--scores-csv", scores, "--policy", "full_size",
+              "--output-csv", f"{tmp}/full.csv"], [f"{tmp}/full.csv"]),
+            ("reeval", reeval.main,
+             ["--checkpoint", f"{tmp}/img/ckpt", "--data-dir", data, "--scores-csv",
+              scores, "--output-csv", f"{tmp}/reeval.csv"], [f"{tmp}/reeval.csv"]),
+        )
+        for name, fn, argv, files in runs:
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(text):
+                rc = fn(argv)
+            torch.cuda.synchronize()
+            missing = [f for f in files if not os.path.exists(f)]
+            rows = 0
+            if not missing:
+                with open(files[0], newline="") as f:
+                    rows = sum(1 for _ in f) - 1
+            calls[name] = {"rc": rc, "seconds": time.perf_counter() - t0,
+                           "launches": launch_counts(), "rows": rows,
+                           "missing": [os.path.basename(f) for f in missing]}
+        with open(f"{tmp}/reeval.csv", newline="") as f:
+            reeval_preds = [float(r.split(",")[1]) for r in f.read().splitlines()[1:]]
+    for name, call in calls.items():
+        tsd = call["launches"]["windowed_tsd"]
+        if not (call["rc"] == 0 and not call["missing"] and call["rows"] > 0
+                and call["launches"]["moments"] > 0
+                and (tsd > 0 if name.startswith("prep") else tsd == 0)):
+            raise AssertionError(f"FR CLI {name}: {call}; output {text.getvalue()[-2000:]}")
+    if not (len(reeval_preds) == 8 and all(math.isfinite(v) for v in reeval_preds)):
+        raise AssertionError(f"reeval scores {reeval_preds}")
+    phase("fr_cli", frame_hw=[288, 352], calls=calls, reeval_pred_scores=reeval_preds)
+
+
+def fr_quality() -> None:
+    """Phase fr_quality: ``quality_demo --kind fr`` at the JAX package's
+    certificate settings (random VGG weights from the seed, 40 videos,
+    4-fold scene-grouped CV through run_fr with the stats cache) for seeds
+    0, 1 and 2, each held to the certificate's thresholds."""
+    import io
+
+    from nerf_qa_torch.tools import quality_demo
+
+    results = {}
+    for seed in (0, 1, 2):
+        reset_launches()
+        t0 = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp, contextlib.redirect_stdout(io.StringIO()):
+            res = quality_demo.main(["--kind", "fr", "--out", tmp, *FR_QUALITY_ARGS,
+                                     "--seed", str(seed)])
+        results[seed] = dict(res, seconds=time.perf_counter() - t0,
+                             moments_launches=launch_counts()["moments"])
+        if not (res["n_videos"] == 40 and results[seed]["moments_launches"] > 0
+                and all(res[k] >= v for k, v in FR_QUALITY_MIN.items())):
+            raise AssertionError(f"FR quality certificate, seed {seed}: {res} "
+                                 f"(thresholds {FR_QUALITY_MIN})")
+    phase("fr_quality", args=" ".join(FR_QUALITY_ARGS), thresholds=FR_QUALITY_MIN,
+          results=results)
+
 
 def main() -> int:
     # 1. device
@@ -1674,12 +2060,8 @@ def main() -> int:
     for (h, w), c in zip(STAGE_HW, STAGE_C):
         shape = (BATCH, h, w, c)
         fx, fy = feature_pair(shape, torch.bfloat16, gen)
-        elems = fx.numel()
-        n_bytes = 2 * elems * fx.element_size() + BATCH * 5 * c * 4
-        ops = 10 * elems  # 5 multiply-adds per element pair
-        t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FP32_FLOPS * 1e3
-        bound_by.add("bytes" if t_bytes >= t_ops else "operations")
+        bound_ms, by = moments_bound(shape, fx.element_size())
+        bound_by.add(by)
 
         def library():
             # yardstick only: no single call gives all five moments
@@ -1691,7 +2073,7 @@ def main() -> int:
             "plain_ms": time_ms(lambda: moments.moment_sums_plain(fx, fy)),
             "ms": time_ms(lambda: moments.moment_sums(fx, fy)),
             "library_ms": time_ms(library),
-            "bound_ms": max(t_bytes, t_ops),
+            "bound_ms": bound_ms,
         }
         row["ms_again"] = time_ms(lambda: moments.moment_sums(fx, fy))
         row["plain_ms_again"] = time_ms(lambda: moments.moment_sums_plain(fx, fy))
@@ -1722,6 +2104,13 @@ def main() -> int:
     cn_bwd_err, cn_bwd_rows = check_cn_bwd(gen, train_calls)
     nr_train_cpu_parity(gen)
     train_cli_run()
+
+    # 10. FR training at full width in both pyramid dtypes, the card's fp32
+    # step against the CPU path, the FR CLIs and the FR quality certificate
+    fr_train_path(model, gen)
+    fr_train_cpu_parity(gen)
+    fr_cli_run()
+    fr_quality()
 
     entries = [{
         "name": "moments",

@@ -18,6 +18,7 @@ import os
 import signal
 from typing import Any
 
+import numpy as np
 import torch
 
 # Model-geometry format version, stamped into every checkpoint dir: the
@@ -108,3 +109,40 @@ class PreemptionSaver:
         save_checkpoint(self.ckpt_dir, step, state)
         self.signaled = False
         return True
+
+
+def _fr_head_from_state(state) -> dict[str, np.ndarray]:
+    """model_stats.py:45-60 head parameters (b1..b4 / dists_weight+bias)
+    as ``head.<name>`` arrays."""
+    out: dict[str, np.ndarray] = {}
+    for torch_key, ours in [
+        ("b1", "b1"), ("b2", "b2"), ("b3", "b3"), ("b4", "b4"),
+        ("dists_weight", "weight"), ("dists_bias", "bias"),
+    ]:
+        if torch_key in state:
+            out[f"head.{ours}"] = state[torch_key].detach().float().numpy()
+    return out
+
+
+def convert_fr_model_from_torch(path: str):
+    """Full FR ``model.pth`` import: (head, alpha_beta|None, vgg|None).
+
+    The saved NeRFQAModel embeds its frozen DISTS (``dists_model.stageK.*``
+    VGG stages + fine-tuned ``dists_model.alpha/beta``, model_stats.py:63-68)
+    alongside the regression head, so one file restores the whole scoring
+    path. ``head``: {'head.b1', ... | 'head.weight', 'head.bias': array};
+    ``alpha_beta``: {'alpha', 'beta': (1475,) array}; ``vgg``: the port's
+    VGG16Pyramid ``state_dict``, None when the file holds no stages."""
+    from nerf_qa_torch.compat.pretrained import _REF_KEY, vgg_state_dict_from_torch
+
+    obj = torch.load(path, map_location="cpu", weights_only=False)
+    sd = obj.state_dict() if hasattr(obj, "state_dict") else obj
+    alpha_beta = None
+    for pre in ("encoder.dists.", "dists_model.", "dists."):
+        if f"{pre}alpha" in sd:
+            alpha_beta = {k: sd[f"{pre}{k}"].detach().float().reshape(-1).numpy()
+                          for k in ("alpha", "beta")}
+            break
+    vgg = (vgg_state_dict_from_torch(sd)
+           if any(_REF_KEY.search(k) for k in sd) else None)
+    return _fr_head_from_state(sd), alpha_beta, vgg

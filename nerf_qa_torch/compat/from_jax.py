@@ -14,8 +14,8 @@ package's importers (``compat/torch_{vit,featup,nr}.py``) read them back.
 The decoder mapping only moves, transposes and flips entries, so it maps
 any pytree shaped like the decoder's params (a gradient, optax Adam's
 ``mu`` and ``nu``) as it maps the weights: ``nr_decoder_tensors_from_jax``
-and ``adam_state_dict_from_jax``. It imports nothing of JAX: callers hand
-it numpy.
+and ``adam_state_dict_from_jax``. ``fr_params_from_jax`` carries the FR
+head and α/β. It imports nothing of JAX: callers hand it numpy.
 """
 from __future__ import annotations
 
@@ -77,6 +77,15 @@ def dists_weights_from_jax(alpha, beta) -> DISTSWeights:
     when the JAX side built them)."""
     return DISTSWeights(_t(np.asarray(alpha).reshape(-1)),
                         _t(np.asarray(beta).reshape(-1)))
+
+
+def fr_params_from_jax(params: Mapping[str, Any]) -> dict[str, Any]:
+    """JAX FR params ``{'head': {name: array}, 'dists': DISTSWeights}``
+    (numpy leaves; ``dists`` anything with ``alpha`` and ``beta``) -> the
+    port's ``models/fr.py`` structure, the same numbers."""
+    w = params["dists"]
+    return {"head": {k: _t(v) for k, v in params["head"].items()},
+            "dists": dists_weights_from_jax(w.alpha, w.beta)}
 
 
 def _conv1x1_or_kxk(layer: Mapping[str, Any]) -> tuple[torch.Tensor, torch.Tensor]:

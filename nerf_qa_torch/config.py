@@ -1,16 +1,23 @@
 """Explicit config dataclasses, and the device rule of every entry point.
 
-Counterpart of ``nerf_qa_tpu/config.py`` (a copy, not an import). This
-carries ``DISTSConfig``, ``ADISTSConfig``, ``NRModelConfig`` and
-``TrainConfig``; ``FRModelConfig`` comes with FR training.
+Counterpart of ``nerf_qa_tpu/config.py`` (a copy, not an import):
+``DISTSConfig``, ``ADISTSConfig``, ``FRModelConfig``, ``NRModelConfig``,
+``TrainConfig`` and ``from_args``.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 from dataclasses import dataclass, field
+from typing import Any
 
 import torch
+
+
+def _update_from_dict(cfg, overrides: dict[str, Any]):
+    names = {f.name for f in dataclasses.fields(cfg)}
+    kwargs = {k: v for k, v in overrides.items() if k in names}
+    return dataclasses.replace(cfg, **kwargs)
 
 
 @dataclass(frozen=True)
@@ -61,6 +68,28 @@ class ADISTSConfig:
     fused_tsd: bool = True
 
     def replace(self, **kw) -> "ADISTSConfig":
+        return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class FRModelConfig:
+    """Full-reference MOS-regression model (model.py / model_stats.py).
+
+    regression_type: 'linear' | 'sqrt' | 'logistic' (model_stats.py:33-79)
+    subjective_score_type: 'MOS' | 'DMOS' (model_stats.py:31-36)
+
+    The DISTS statistics default to the fused moments kernel: FR features
+    are always detached (the trainer takes gradients over the head and
+    α/β only), so the kernel's missing backward never matters, and a CPU
+    tensor takes its plain version.
+    """
+
+    regression_type: str = "linear"
+    subjective_score_type: str = "MOS"
+    dists: DISTSConfig = field(
+        default_factory=lambda: DISTSConfig(stats_impl="kernel"))
+
+    def replace(self, **kw) -> "FRModelConfig":
         return dataclasses.replace(self, **kw)
 
 
@@ -151,6 +180,13 @@ class TrainConfig:
 
     def replace(self, **kw) -> "TrainConfig":
         return dataclasses.replace(self, **kw)
+
+
+def from_args(cfg, args) -> Any:
+    """Overlay argparse.Namespace / dict values onto a config dataclass."""
+    if not isinstance(args, dict):
+        args = vars(args)
+    return _update_from_dict(cfg, args)
 
 
 @contextlib.contextmanager

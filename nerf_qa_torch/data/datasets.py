@@ -1,13 +1,29 @@
-"""Host-side NR frame dataset.
+"""Host-side frame datasets.
 
-Counterpart of ``nerf_qa_tpu/data/datasets.py``, the part NR training
-uses: the cumulative frame-count indexing (data.py:92-93, 126-133),
-``parse_list_column`` and ``NerfNRQADataset`` in ``render`` and ``gt``
-mode, which read the same (data.py:431-554): the render and its ground
-truth, paired rotation and 0.7 center crop (+ random crop when
-training), resized to the network's two input sizes, with the per-frame
-DISTS std / mean targets. The score-map mode (ROADMAP Queue 1 item 11)
-raises.
+Counterpart of ``nerf_qa_tpu/data/datasets.py``:
+
+* cumulative frame-count indexing: videos flatten into one global frame
+  index (data.py:92-93,126-133)
+* Test2Dataset: paired Reference/Renders frame trees + per-video MOS
+  (data.py:86-171), optional uint8 in-memory cache with reference-frame
+  dedup (data.py:104-120)
+* LargeQADataset: NeRF-QA-Large trees with %03d frame names
+  (data.py:190-227)
+* NeRFQAResizedDataset: paired random resize + random crop augmentation
+  (data.py:285-364)
+* NerfNRQADataset in ``render`` and ``gt`` mode, which read the same
+  (data.py:431-554): the render and its ground truth, paired rotation
+  and 0.7 center crop (+ random crop when training), resized to the
+  network's two input sizes, with the per-frame DISTS std / mean
+  targets. The score-map mode (ROADMAP Queue 1 item 11) raises.
+* Test2VideoDataset: per-video paired dict frames at 256²+224²
+  (data.py:42-84)
+
+Two faults of the JAX classes are mirrored, not fixed, so both packages
+give the same arrays: ``Test2Dataset`` returns the ``MOS`` column as the
+target whatever the score type a caller fits to, and
+``Test2VideoDataset`` reads ``Reference/<distorted_folder>`` and
+``Renders/<reference_folder>`` (the two folder names swapped).
 
 Rows are plain dicts (the scores CSV read with the ``csv`` module, as
 ``tools/train_nr.py`` does), where the JAX package takes a pandas frame.
@@ -18,6 +34,7 @@ arrays.
 from __future__ import annotations
 
 import ast
+import os
 from os import path
 from typing import Mapping, Sequence
 
@@ -25,7 +42,10 @@ import numpy as np
 
 from nerf_qa_torch.data.imaging import (
     load_image_rgb,
+    load_prepared,
+    load_resized,
     paired_random_crop,
+    paired_random_resize,
     paired_rotate,
     resize_image,
 )
@@ -65,6 +85,134 @@ class FrameIndexed:
             out.setdefault(scene, []).extend(range(start, start + int(count)))
             start += int(count)
         return out
+
+
+def _listdir_frames(folder: str) -> list[str]:
+    files = [f for f in os.listdir(folder) if f.endswith((".jpg", ".png"))]
+    files.sort()
+    return files
+
+
+class Test2Dataset(FrameIndexed):
+    """Paired Reference/Renders frame trees (data.py:86-171): (dist, ref,
+    MOS, video index) per frame."""
+
+    def __init__(self, dir: str, rows: Sequence[Mapping], in_memory: bool = False,
+                 resize: bool = True):
+        self.ref_dir = path.join(dir, "Reference")
+        self.dist_dir = path.join(dir, "Renders")
+        self.rows = list(rows)
+        self.resize = resize
+        self.render_files = [
+            _listdir_frames(path.join(self.dist_dir, row["distorted_folder"]))
+            for row in self.rows
+        ]
+        self.gt_files = [
+            _listdir_frames(path.join(self.ref_dir, row["reference_folder"]))
+            for row in self.rows
+        ]
+        super().__init__([len(f) for f in self.gt_files])
+        self._cache: dict[int, tuple] = {}
+        self._ref_cache: dict[tuple, np.ndarray] = {}
+        self.in_memory = in_memory
+        if in_memory:
+            for i in range(len(self)):
+                self[i]
+
+    def __getitem__(self, idx: int):
+        video_idx, frame = self.locate(idx)
+        row = self.rows[video_idx]
+        if self.in_memory and idx in self._cache:
+            dist_u8, score = self._cache[idx]
+            ref_u8 = self._ref_cache[(row["reference_folder"], frame)]
+            return (
+                dist_u8.astype(np.float32) / 255.0,
+                ref_u8.astype(np.float32) / 255.0,
+                score,
+                video_idx,
+            )
+        dist_path = path.join(self.dist_dir, row["distorted_folder"],
+                              self.render_files[video_idx][frame])
+        ref_path = path.join(self.ref_dir, row["reference_folder"],
+                             self.gt_files[video_idx][frame])
+        # prepare_image semantics: resize only when min side > 256
+        # (data.py:154-155 -> DISTS_pt.py:210-217)
+        dist = load_prepared(dist_path, resize=self.resize)
+        ref = load_prepared(ref_path, resize=self.resize)
+        score = float(row["MOS"])  # whatever the score type: mirrors JAX
+        if self.in_memory:
+            # quantized uint8 cache, reference frames deduped
+            self._cache[idx] = ((dist * 255).astype(np.uint8), score)
+            key = (row["reference_folder"], frame)
+            if key not in self._ref_cache:
+                self._ref_cache[key] = (ref * 255).astype(np.uint8)
+        return dist, ref, score, video_idx
+
+    def get_scene_indices(self):
+        return self.scene_indices([r["distorted_folder"] for r in self.rows])
+
+
+class LargeQADataset(FrameIndexed):
+    """NeRF-QA-Large frame trees (data.py:190-227)."""
+
+    def __init__(self, dir: str, rows: Sequence[Mapping], resize: bool = True):
+        self.ref_dir = path.join(dir, "references")
+        self.dist_dir = path.join(dir, "nerf-renders")
+        self.rows = list(rows)
+        self.resize = resize
+        super().__init__([int(r["frame_count"]) for r in self.rows])
+
+    def __getitem__(self, idx: int):
+        video_idx, frame = self.locate(idx)
+        row = self.rows[video_idx]
+        dist = load_prepared(
+            path.join(self.dist_dir, row["distorted_filename"],
+                      f"{frame:03d}.png"), resize=self.resize,
+        )
+        ref = load_prepared(
+            path.join(self.ref_dir, row["referenced_filename"],
+                      f"{frame:03d}.png"), resize=self.resize,
+        )
+        return dist, ref, float(row["MOS"]), video_idx
+
+    def get_scene_indices(self):
+        return self.scene_indices([r["distorted_filename"] for r in self.rows])
+
+
+class NeRFQAResizedDataset(FrameIndexed):
+    """Original-size frames + paired random resize/crop augmentation
+    (data.py:285-364)."""
+
+    def __init__(self, dir: str, rows: Sequence[Mapping],
+                 rng: np.random.Generator | None = None):
+        self.ref_dir = path.join(dir, "Reference")
+        self.dist_dir = path.join(dir, "NeRF-QA_videos")
+        self.rng = rng or np.random.default_rng(0)
+        self.rows = [dict(r, distorted_folder=path.splitext(r["distorted_filename"])[0],
+                          reference_folder=path.splitext(r["reference_filename"])[0])
+                     for r in rows]
+        counts = [len(_listdir_frames(path.join(self.ref_dir, r["reference_folder"],
+                                                "256x256")))
+                  for r in self.rows]
+        super().__init__(counts)
+
+    def __getitem__(self, idx: int):
+        video_idx, frame = self.locate(idx)
+        row = self.rows[video_idx]
+        dist = load_image_rgb(
+            path.join(self.dist_dir, row["distorted_folder"], "original_size",
+                      f"{frame:03d}.png")
+        )
+        ref = load_image_rgb(
+            path.join(self.ref_dir, row["reference_folder"], "original_size",
+                      f"{frame:03d}.png")
+        )
+        dist, ref = paired_random_resize(dist, ref, 256, self.rng)
+        dist, ref = paired_random_crop(dist, ref, 256, 256, self.rng)
+        return dist, ref, float(row["MOS"]), video_idx
+
+    def get_scene_indices(self):
+        return self.scene_indices([r["distorted_folder"] for r in self.rows])
 
 
 class NerfNRQADataset(FrameIndexed):
@@ -137,3 +285,32 @@ class NerfNRQADataset(FrameIndexed):
         dists_mean = parse_list_column(row["DISTS_mean"])[frame]
         return (resize_image(gt, rs, rs), render_pack, np.float32(dists_std),
                 np.float32(dists_mean), video_idx, frame)
+
+
+class Test2VideoDataset:
+    """Per-video paired dict frames at 256²+224² (data.py:42-84). The
+    folder names are swapped as in the JAX class: the "gt" frames come
+    from ``Reference/<distorted_folder>`` and the renders from
+    ``Renders/<reference_folder>``."""
+
+    def __init__(self, row: Mapping, dir: str):
+        gt_dir = path.join(dir, "Reference", row["distorted_folder"])
+        render_dir = path.join(dir, "Renders", row["reference_folder"])
+        self.files = list(zip(
+            [path.join(gt_dir, f) for f in _listdir_frames(gt_dir)],
+            [path.join(render_dir, f) for f in _listdir_frames(render_dir)],
+        ))
+
+    def __len__(self):
+        return len(self.files)
+
+    def __getitem__(self, idx: int):
+        gt_path, render_path = self.files[idx]
+
+        def pack(p):
+            return {
+                "256x256": load_resized(p, 256, 256),
+                "224x224": load_resized(p, 224, 224),
+            }
+
+        return pack(gt_path), pack(render_path)

@@ -1,13 +1,13 @@
 """Host-side image decode, resize and paired augmentation (PIL route).
 
-A copy of the parts of ``nerf_qa_tpu/data/imaging.py`` that
-``load_prepared`` and the NR dataset need: PIL decode with RGBA->white
-compositing (data.py:64-84), torch-geometry bilinear resize,
-``prepare_image`` (DISTS_pt.py:210-217), and the paired random crop and
-rotation of the NR augmentation (data.py:321-325, 508-513), with every
-random number from an explicit numpy Generator. The native decoder and
-fast decode come with the data-feed slice. Pillow is optional: without it
-the loaders raise.
+A copy of the PIL route of ``nerf_qa_tpu/data/imaging.py``: PIL decode
+with RGBA->white compositing (data.py:64-84), torch-geometry bilinear
+resize, ``load_resized``, ``prepare_image`` (DISTS_pt.py:210-217), and
+the paired random resize and crop of the FR augmentation (data.py:315-325)
+and rotation of the NR one (data.py:508-513), with every random number
+from an explicit numpy Generator. The native decoder and fast decode come
+with the data-feed slice (ROADMAP Queue 1 item 10). Pillow is optional:
+without it the loaders raise.
 """
 from __future__ import annotations
 
@@ -62,6 +62,12 @@ def resize_image(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return x
 
 
+def load_resized(path: str, out_h: int, out_w: int) -> np.ndarray:
+    """Decode + bilinear resize to float32 (out_h, out_w, 3) (the PIL
+    route of the JAX package's fused decode+resize)."""
+    return resize_image(load_image_rgb(path), out_h, out_w)
+
+
 def resize_shortest_side(img: np.ndarray, side: int) -> np.ndarray:
     """Aspect-preserving resize (prepare_image keep_aspect_ratio path,
     DISTS_pt.py:212-213): shortest side -> ``side``."""
@@ -88,6 +94,18 @@ def load_prepared(path: str, resize: bool = True,
     """Decode + prepare_image in one step."""
     return prepare_image(load_image_rgb(path), resize=resize,
                          keep_aspect_ratio=keep_aspect_ratio)
+
+
+def paired_random_resize(a: np.ndarray, b: np.ndarray, min_side: int,
+                         rng: np.random.Generator):
+    """Resize both images so the shortest side is uniform in
+    [min_side, current_min_side] (data.py:315-320)."""
+    h, w = a.shape[:2]
+    lo = min(min_side, min(h, w))
+    target = int(rng.integers(lo, min(h, w) + 1))
+    scale = target / min(h, w)
+    nh, nw = max(1, round(h * scale)), max(1, round(w * scale))
+    return resize_image(a, nh, nw), resize_image(b, nh, nw)
 
 
 def paired_random_crop(a: np.ndarray, b: np.ndarray, ch: int, cw: int,

@@ -70,6 +70,24 @@ def test_moments_stats_match_two_pass_at_1080p():
         torch.testing.assert_close(a.double(), b, rtol=RTOL, atol=ATOL)
 
 
+# the FR training step's stages: one pyramid batch of 2 x 32 images at
+# 256², split into its dist and ref halves (train/fr_train.py)
+FR_STAGES = ((256, 3), (256, 64), (128, 128), (64, 256), (32, 512), (16, 512))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("hw,c", FR_STAGES)
+def test_moments_kernel_at_fr_training_shapes(hw, c, dtype):
+    both, _ = _pair((64, hw, hw, c), dtype, seed=hw + c)
+    fx, fy = both[:32], both[32:]
+    before = moments.launches
+    got = moments.moment_sums(fx, fy)
+    torch.cuda.synchronize()
+    assert moments.launches == before + 1
+    torch.testing.assert_close(got, moments.moment_sums_plain(fx, fy),
+                               rtol=RTOL, atol=ATOL)
+
+
 def test_moments_kernel_rejects_grad_and_bad_layout():
     fx, fy = _pair((1, 8, 8, 16), torch.float32)
     with pytest.raises(RuntimeError, match="no backward"):
