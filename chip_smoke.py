@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
 ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives five paths at full width and
+plain PyTorch version on the card. It drives six paths at full width and
 checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
@@ -30,6 +30,16 @@ checks that each went through its kernels:
   profiler's top kernels, the card's fp32 step against the CPU path at a
   small depth, and the training CLI (``tools.train_nr``) for an epoch, a
   resume and ``score --nr`` of its checkpoint;
+* the rest of NR training (the same full width, batch 4): the score-map
+  objective in both decoder dtypes, against every plain version and the
+  CPU path, with 4 JBU, 18 + 18 ChannelNorm and 0 T/S launches a step
+  (``nr_scoremap_train``); remat against the plain step, with both peak
+  memories (``nr_remat``); v1-v6, a scoring batch and a training step
+  each, against eager statistics and the CPU path (``nr_versions``); the
+  ViT-token cache (``nr_feature_cache``); ``prep_nr --score-maps`` with
+  its T/S kernel against the plain maps, ``train_nr`` with each new flag
+  and ``score --nr`` (``nr_cli_full``); and the two forms of the
+  decoders' transposed conv timed (``subpixel_choice``);
 * FR training through ``FRTrainer`` (VGG16 at full width, batch 32 of 256²
   pairs made on the card, the logistic head, both pyramid dtypes): the
   moments kernel, 6 launches per step, cache batch and eval batch; a
@@ -62,6 +72,7 @@ import copy
 import functools
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -151,6 +162,52 @@ TRAIN_PLAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # card fp32 training step vs the CPU path: each decoder gradient relative
 # to its largest value (the CPU parity tests' fp32 bar against JAX)
 TRAIN_CPU_GRAD_RTOL = 1e-3
+# the score-map step launches what the gt step does: its ADISTS takes the
+# plain T/S version under autograd (the kernel has no backward)
+SCOREMAP_LAUNCHES = dict(TRAIN_LAUNCHES)
+# the score-map step's learning rate: the CLI's default. At 3e-4 its
+# score-map loss first rises for a few steps from the random init
+# (measured on the CPU at 128², full decoder width), at 1e-4 it falls
+SCOREMAP_LR = 1e-4
+# a remat step recomputes each RefineUp stage in the backward: every
+# ChannelNorm forward of the cascade again (17: three a stage, two in the
+# last, whose resample does not run; trans2sem's is outside the
+# checkpoints), the backward unchanged
+NR_CN_RECOMPUTED = 5 * 3 + 2
+REMAT_LAUNCHES = dict(TRAIN_LAUNCHES, channelnorm=NR_CN_PER_BATCH + NR_CN_RECOMPUTED)
+# remat against the plain step on the card: the same arithmetic, but
+# cuDNN's backward kernels may sum in another order between calls
+# (losses and gradients relative to the largest)
+REMAT_RTOL = 1e-6
+# v1-v6: no JBU, no ChannelNorm; a scoring batch takes the moments kernel
+# at its six stages (v4, whose score is the regression head's alone, none),
+# a training step eager statistics
+VERSION_SCORE_LAUNCHES = {"moments": 6, "jbu": 0, "channelnorm": 0,
+                          "channelnorm_bwd": 0, "windowed_tsd": 0}
+VERSION_TRAIN_LAUNCHES = dict.fromkeys(VERSION_SCORE_LAUNCHES, 0)
+# v1-v6 card vs CPU, one fp32 step at 64² on inputs from a seed of their
+# own: the BatchNorm running averages after it relative to their largest
+# value (fp32 means over 8,192-32,768 values in another order); the decoder
+# gradient per tensor relative to its largest value (``step_gaps``) and as
+# a whole (L2 relative to its norm). The BatchNorm generations' gradients
+# carry the card's other summation orders far (flax's E[x²] − E[x]² batch
+# variance cancels). Each gradient bar sits between what the card reads
+# and what the fault ``unbiased_batchnorm`` gives on the CPU, both printed
+# by ``nr_versions_cpu_parity`` every run (on an NVIDIA H100 80GB HBM3 at
+# 700 W: per tensor at most 3.4e-2 against at least 0.146, in L2 at most
+# 1.22e-2 against at least 5.0e-2)
+VERSION_SEED = 5
+VERSION_STATS_RTOL = 1e-5
+VERSION_GRAD_RTOL = 7e-2
+VERSION_GRAD_L2 = 2.5e-2
+# the cached-token step against the uncached one: fp16 tokens (the JAX
+# package's bar, tests/test_feature_cache.py:79)
+CACHE_ATOL = 2e-3
+# prep_nr --score-maps: the T/S kernel at stages 0-4 of a 256² frame
+# (stage 5, 16², is smaller than the window); the float maps kernel vs
+# plain before the -log10 encoding
+PREP_TSD_PER_FRAME = 5
+SCOREMAP_ATOL = 1e-5
 # FR training: FRTrainer at the FR device batch (DEVICE_BATCH_SIZE_FR = 32
 # pairs, one pyramid batch of 64 images at 256²) with run_fr's defaults (the
 # logistic head, lr 1e-4, the exponential schedule with its one-epoch
@@ -1324,10 +1381,10 @@ def check_cn_bwd(gen, train_calls: dict[str, list]) -> tuple[float, dict[str, di
     return max(worst.values()), totals
 
 
-def make_trainer(vgg, weights, decoder_dtype: str, vit, jbu):
+def make_trainer(vgg, weights, decoder_dtype: str, vit, jbu, lr: float = TRAIN_LR):
     """NRTrainer at full width: ViT-S/14 depth 12 and the JBU stack as
     given (seeded random), decoder depths 2 / 2 with dropout 0.2, the
-    CLI's bf16 VGG, a fresh decoder and Adam."""
+    CLI's bf16 VGG, a fresh decoder and Adam at ``lr``."""
     from nerf_qa_torch.config import DISTSConfig, NRModelConfig, TrainConfig
     from nerf_qa_torch.models.nr.model import NRModel
     from nerf_qa_torch.train.nr_train import NRTrainer
@@ -1335,20 +1392,36 @@ def make_trainer(vgg, weights, decoder_dtype: str, vit, jbu):
     cfg = NRModelConfig(decoder_dtype=decoder_dtype,
                         dists=DISTSConfig(compute_dtype="bfloat16"))
     model = NRModel(vgg, weights, cfg, vit=vit, jbu=jbu)
-    trainer = NRTrainer(model, TrainConfig(lr=TRAIN_LR, schedule="constant",
+    trainer = NRTrainer(model, TrainConfig(lr=lr, schedule="constant",
                                            batch_size=TRAIN_BATCH), steps_per_epoch=1)
     trainer.init(seed=0)
     return trainer
 
 
-def step_grads(trainer, batch, gen_state) -> tuple[dict, dict]:
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms inside the block (the repeat of
+    ``nr_train_path``'s kernels step)."""
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def step_grads(trainer, batch, gen_state, deterministic: bool = False,
+               **kw) -> tuple[dict, dict]:
     """The losses and decoder gradients of one training step's forward and
-    backward (no update), the dropout generator at ``gen_state``."""
+    backward (no update), the dropout generator at ``gen_state``, ``kw``
+    passed to ``losses`` (a score map, cached tokens); with
+    ``deterministic``, under cuDNN's deterministic algorithms."""
     model = trainer.model
     trainer.generator.set_state(gen_state)
     model.decoder.train().zero_grad(set_to_none=True)
-    with model.train_precision():
-        losses = model.losses(*batch, generator=trainer.generator)
+    algos = deterministic_convs() if deterministic else contextlib.nullcontext()
+    with model.train_precision(), algos:
+        losses = model.losses(*batch, generator=trainer.generator, **kw)
         losses["combined"].backward()
     grads = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
              for n, p in model.decoder.named_parameters()}
@@ -1413,13 +1486,25 @@ def nr_train_path(vgg, gen) -> tuple[dict[str, dict], dict[str, list]]:
         with plain_versions(model):
             p_losses, p_grads = step_grads(trainer, batch, state)
         loss_gap = max(abs(k_losses[k] - p_losses[k]) for k in k_losses)
-        grad_gaps = {n: float((k_grads[n] - p_grads[n]).abs().max())
-                     / max(float(p_grads[n].abs().max()), 1e-30) for n in p_grads}
-        worst = max(grad_gaps, key=grad_gaps.get)
+        gaps = grad_gaps(k_grads, p_grads)
+        worst = max(gaps, key=gaps.get)
         if not (loss_gap <= TRAIN_PLAIN_LOSS_ATOL[dtype]
-                and grad_gaps[worst] <= TRAIN_PLAIN_GRAD_RTOL[dtype]):
+                and gaps[worst] <= TRAIN_PLAIN_GRAD_RTOL[dtype]):
             raise AssertionError(f"NR training ({dtype}) kernels vs plain: loss gap "
-                                 f"{loss_gap}, gradient {worst} {grad_gaps[worst]}")
+                                 f"{loss_gap}, gradient {worst} {gaps[worst]}")
+        # repeatability: the kernels' step twice under cuDNN's deterministic
+        # algorithms is bit-equal (a race in a kernel would break it); each
+        # step again as above, the spread of what cuDNN's algorithms alone
+        # change between two calls
+        a, b = (step_grads(trainer, batch, state, deterministic=True)[1] for _ in range(2))
+        if not all(torch.equal(a[n], b[n]) for n in a):
+            raise AssertionError(f"NR training ({dtype}): the kernels' step is not "
+                                 "repeatable under cuDNN's deterministic algorithms")
+        spread = {"kernels": max(grad_gaps(step_grads(trainer, batch, state)[1],
+                                           k_grads).values())}
+        with plain_versions(model):
+            spread["plain"] = max(grad_gaps(step_grads(trainer, batch, state)[1],
+                                            p_grads).values())
         trainer.generator.set_state(state)
 
         # steps/s and frames/s in turns
@@ -1448,7 +1533,8 @@ def nr_train_path(vgg, gen) -> tuple[dict[str, dict], dict[str, list]]:
               launches_per_step={k: v // TRAIN_COUNTED for k, v in counts.items()},
               counted_step_losses=step_losses, det_loss_before=loss_before,
               det_loss_after=loss_after, kernels_vs_plain_loss_gap=loss_gap,
-              kernels_vs_plain_worst_grad=[worst, grad_gaps[worst]],
+              kernels_vs_plain_worst_grad=[worst, gaps[worst]],
+              deterministic_repeat_bit_equal=True, nondeterministic_repeat_spread=spread,
               loss_atol=TRAIN_PLAIN_LOSS_ATOL[dtype],
               grad_rtol=TRAIN_PLAIN_GRAD_RTOL[dtype],
               steps_per_s=rates, frames_per_s={k: [TRAIN_BATCH * r for r in v]
@@ -1555,6 +1641,809 @@ def train_cli_run() -> None:
     phase("train_cli", argv=" ".join(common[6:] + ["--epochs", "1|2"]), launches=counts,
           epochs=[line for line in text.splitlines() if line.startswith(("epoch", "val"))],
           score_nr=result)
+
+
+def grad_gaps(got: dict, want: dict) -> dict[str, float]:
+    """Per tensor, max |got − want| over the tensor's largest |want|."""
+    return {n: float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), 1e-30)
+            for n in want}
+
+
+def nr_backbones():
+    """The seeded random full-width encoder parts shared by the NR phases:
+    bf16 DISTS α/β, ViT-S/14 depth 12 and the JBU stack."""
+    from nerf_qa_torch.compat.pretrained import (
+        resolve_dists_weights,
+        resolve_jbu_params,
+        resolve_vit_params,
+    )
+    from nerf_qa_torch.config import DISTSConfig
+
+    return (resolve_dists_weights(DISTSConfig(compute_dtype="bfloat16")),
+            resolve_vit_params(depth=12, seed=0), resolve_jbu_params(seed=1))
+
+
+def train_batch(gen, n: int = TRAIN_BATCH, hw: int = 256, sem: int = 224):
+    """(gt, render, render at sem²) made on the card."""
+    from nerf_qa_torch.ops.resize import resize_bilinear
+
+    gt = torch.rand((n, hw, hw, 3), generator=gen, device="cuda")
+    render = (gt + 0.05 * torch.randn(gt.shape, generator=gen, device="cuda")).clamp(0, 1)
+    return gt, render, resize_bilinear(render, sem, sem)
+
+
+def turns(step, variants, plain_model, n_steps: int) -> dict[str, list[float]]:
+    """Steps per second of ``step()`` in turns over ``variants`` ('kernels'
+    or 'plain', the latter with every plain version), CUDA-event timed."""
+    rates = {v: [] for v in dict.fromkeys(variants)}
+    for v in variants:
+        ctx = plain_versions(plain_model) if v == "plain" else contextlib.nullcontext()
+        with ctx:
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(n_steps):
+                step()
+            end.record()
+            end.synchronize()
+        rates[v].append(n_steps / (start.elapsed_time(end) / 1e3))
+    return rates
+
+
+def nr_scoremap_train(vgg, gen) -> dict[str, dict]:
+    """Phase nr_scoremap_train: the score-map objective
+    (``NRTrainer.train_step_score_map``) at full width, batch 4, for both
+    decoder dtypes, on renders and ground truths made on the card from a
+    seeded generator and their -log10 ADISTS maps (prep_nr's
+    ``log_score_map``, on the card): launches per step (4 JBU, 18 + 18
+    ChannelNorm, 0 T/S: the loss's ADISTS takes the plain T/S), kernels
+    against every plain version to the NR training bars
+    (``scoremap_kernels_ok``; the fp32 decoder's step compared in true
+    fp32, its VGG too, whose bf16 rounding of the predicted image no fp32
+    bar could hold), ``score_map_l1`` and ``combined`` falling, frames/s
+    in turns, the ``nr.*`` ranges with ``nr.score_map``, peak memory; then
+    the card's fp32 step against the CPU path at a small depth."""
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.tools.prep_nr import log_score_map
+
+    weights, vit, jbu = nr_backbones()
+    batch = train_batch(gen)
+    # the target prep_nr would write for these pairs: the -log10 ADISTS map
+    # of (gt, render), here as floats (channel 1 of a 3-channel map)
+    logm = torch.from_numpy(log_score_map(vgg.cuda(), batch[0], batch[1],
+                                          ADISTSConfig(compute_dtype="bfloat16"))).cuda()
+    score_map = logm[..., None].expand(-1, -1, -1, 3).contiguous()
+    out = {}
+    for dtype in TRAIN_DTYPES[::-1]:  # fp32, the tight bars, first
+        trainer = make_trainer(vgg, weights, dtype, vit, jbu, SCOREMAP_LR)
+        model = trainer.model
+
+        def det_losses():
+            with torch.no_grad():
+                losses = model.losses(*batch, score_map=score_map)
+            return {k: float(losses[k]) for k in ("score_map_l1", "combined")}
+
+        def step():
+            return trainer.train_step_score_map(*batch, score_map)
+
+        before = det_losses()
+        step()  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        counted = [float(step()["combined"]) for _ in range(TRAIN_COUNTED)]
+        counts = launch_counts()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = {k: v * TRAIN_COUNTED for k, v in SCOREMAP_LAUNCHES.items()}
+        if counts != want:
+            raise AssertionError(f"score-map training ({dtype}) launches {counts}, "
+                                 f"expected {want}")
+        state = trainer.generator.get_state()
+        cfg = model.cfg
+        if dtype == "float32":  # compared in true fp32, the VGG too
+            model.cfg = cfg.replace(dists=cfg.dists.replace(compute_dtype="float32"))
+        ok, vs_plain = scoremap_kernels_ok(dtype, trainer, batch, state, score_map=score_map)
+        model.cfg = cfg
+        if not ok:
+            raise AssertionError(f"score-map training ({dtype}) kernels vs plain: {vs_plain}")
+        rates = turns(step, ("kernels", "plain", "plain", "kernels"), model, TRAIN_TIMED)
+        prof = profile_step(step)
+        if set(prof.get("layers_device_ms", ())) != set(TRAIN_LAYERS) | {"score_map_ms"}:
+            raise AssertionError(f"score-map training ({dtype}) profiler ranges {prof}")
+        after = det_losses()
+        if not all(math.isfinite(after[k]) and after[k] < before[k] for k in before):
+            raise AssertionError(f"score-map training ({dtype}) losses {before} -> {after}")
+        phase("nr_scoremap_train", decoder_dtype=dtype, vgg_dtype="bfloat16",
+              batch=TRAIN_BATCH, vit_depth=12, decoder_depths=[2, 2], dropout=0.2,
+              lr=SCOREMAP_LR, steps=trainer.step, launches=counts,
+              launches_per_step={k: v // TRAIN_COUNTED for k, v in counts.items()},
+              counted_step_losses=counted, det_losses_before=before,
+              det_losses_after=after,
+              kernels_vs_plain_vgg_dtype="float32" if dtype == "float32" else "bfloat16",
+              kernels_vs_plain=vs_plain, loss_atol=TRAIN_PLAIN_LOSS_ATOL[dtype],
+              grad_rtol=TRAIN_PLAIN_GRAD_RTOL[dtype],
+              steps_per_s=rates, frames_per_s={k: [TRAIN_BATCH * r for r in v]
+                                               for k, v in rates.items()},
+              peak_mem_gib=peak, **prof)
+        out[dtype] = counts
+        del trainer, model
+        torch.cuda.empty_cache()
+    scoremap_cpu_parity(gen)
+    return out
+
+
+def decoder_vjp(trainer, batch, state, cotangents=None, **kw):
+    """One training step's forward and backward (no update), the dropout
+    generator at ``state``. Returns the losses; the decoder's outputs (the predicted image and feature
+    maps, and the regression map where there is one); the loss's gradient
+    with respect to them, its cotangents; and the decoder's parameter
+    gradients for those cotangents (``own``, the step's own gradient) and,
+    with ``cotangents`` given, for those (``shared``)."""
+    model = trainer.model
+    outs = []
+    hook = model.decoder.register_forward_hook(lambda mod, args, out: outs.append(out))
+    trainer.generator.set_state(state)
+    model.decoder.train().zero_grad(set_to_none=True)
+    grads = {}
+
+    def take(name):
+        grads[name] = {n: torch.zeros_like(p) if p.grad is None else p.grad.clone()
+                       for n, p in model.decoder.named_parameters()}
+        model.decoder.zero_grad(set_to_none=True)
+
+    try:
+        with model.train_precision():
+            losses = model.losses(*batch, generator=trainer.generator, **kw)
+            predicted, reg_map = outs[0]
+            flat = [t for t in (*predicted, reg_map) if t is not None]
+            own = torch.autograd.grad(losses["combined"], flat, retain_graph=True,
+                                      allow_unused=True)
+            own = [torch.zeros_like(t) if g is None else g for t, g in zip(flat, own)]
+            torch.autograd.backward(flat, own, retain_graph=cotangents is not None)
+            take("own")
+            if cotangents is not None:
+                torch.autograd.backward(flat, cotangents)
+                take("shared")
+    finally:
+        hook.remove()
+    trainer.generator.set_state(state)
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            [t.detach() for t in flat], own, grads)
+
+
+def rel_l2(got, want) -> float:
+    """The L2 distance of two lists or dicts of tensors over all their
+    elements, relative to the L2 norm of ``want``."""
+    if isinstance(want, dict):
+        got, want = [got[n] for n in want], list(want.values())
+    num = sum(float((g.double() - w.double()).square().sum()) for g, w in zip(got, want))
+    return math.sqrt(num / max(sum(float(w.double().square().sum()) for w in want), 1e-300))
+
+
+def scoremap_kernels_ok(dtype, trainer, batch, state, **kw) -> tuple[bool, dict]:
+    """The score-map step, the kernels against every plain version, to the
+    NR training bars (TRAIN_PLAIN_LOSS_ATOL, TRAIN_PLAIN_GRAD_RTOL): every
+    loss, and each decoder gradient relative to its largest value. The
+    gradients are the decoder's backward, kernels and plain, of one shared
+    cotangent, the plain step's gradient of the loss with respect to the
+    decoder's outputs: the score-map loss's own gradient with respect to
+    the predicted image changes far more than the image does (the clamp
+    to [0, 1], the bf16 VGG of the ADISTS map, its min/max
+    normalisations and var/mean ratios, -log10), so each step's own
+    gradient carries that change, which is not the kernels'. The phase
+    reports the decoder outputs' distance, the cotangents' and the own
+    gradients' (whole-gradient L2 relative to the norm). Returns (ok, the
+    figures)."""
+    model = trainer.model
+    with plain_versions(model):
+        pl, p_out, p_cot, pg = decoder_vjp(trainer, batch, state, **kw)
+    kl, k_out, k_cot, kg = decoder_vjp(trainer, batch, state, p_cot, **kw)
+    loss_gaps = {k: abs(kl[k] - pl[k]) for k in pl}
+    gaps = grad_gaps(kg["shared"], pg["own"])
+    worst = max(gaps, key=gaps.get)
+    own = grad_gaps(kg["own"], pg["own"])
+    own_worst = max(own, key=own.get)
+    ok = (max(loss_gaps.values()) <= TRAIN_PLAIN_LOSS_ATOL[dtype]
+          and gaps[worst] <= TRAIN_PLAIN_GRAD_RTOL[dtype])
+    return ok, {"loss_gaps": loss_gaps, "worst_grad": [worst, gaps[worst]],
+                "grad_l2": rel_l2(kg["shared"], pg["own"]),
+                "outputs_l2": rel_l2(k_out, p_out),
+                "outputs_max_of_largest": max(
+                    float((k - p).abs().max()) / max(float(p.abs().max()), 1e-30)
+                    for k, p in zip(k_out, p_out)),
+                "cotangents_l2": rel_l2(k_cot, p_cot),
+                "own_grad_l2": rel_l2(kg["own"], pg["own"]),
+                "own_worst_grad": [own_worst, own[own_worst]]}
+
+
+def small_nr(cfg, decoder_seed: int = 3):
+    """An NR model at 64² / 56² (ViT depth 2) with a seeded decoder built
+    as the trainers build it, for card-against-CPU checks."""
+    from nerf_qa_torch.compat.pretrained import (
+        resolve_dists_weights,
+        resolve_jbu_params,
+        resolve_vgg_params,
+        resolve_vit_params,
+    )
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+    from nerf_qa_torch.models.nr.model import NRModel
+
+    decoder = init_lecun_normal_(NRDecoder(cfg, qkv_bias=True, layer_scale=True),
+                                 torch.Generator().manual_seed(decoder_seed))
+    return NRModel(resolve_vgg_params(seed=0), resolve_dists_weights(cfg.dists), cfg,
+                   vit=resolve_vit_params(depth=2, grid_size=4, seed=0),
+                   jbu=resolve_jbu_params(seed=1) if cfg.version >= 7 else None,
+                   decoder=decoder, render_size=64, sem_size=56)
+
+
+def train_mode_step(model, args, kwargs) -> tuple[dict, dict, dict, dict]:
+    """One fp32 training-mode step's forward and backward (no generator:
+    no dropout): the losses, the decoder's gradients and its BatchNorm
+    running averages (on the CPU), and the launches."""
+    reset_launches()
+    model.decoder.train()
+    with model.train_precision():
+        losses = model.losses(*args, **kwargs)
+        losses["combined"].backward()
+    return ({k: float(v.detach()) for k, v in losses.items()},
+            {n: torch.zeros_like(p).cpu() if p.grad is None else p.grad.cpu()
+             for n, p in model.decoder.named_parameters()},
+            {k: v.cpu() for k, v in model.decoder.state_dict().items()
+             if k.endswith(("running_mean", "running_var"))},
+            launch_counts())
+
+
+def card_and_cpu_steps(small, batch, **kw) -> tuple[tuple, tuple]:
+    """``train_mode_step`` on the card (every kernel on) and on the CPU
+    from the same weights: (card, CPU)."""
+    on_cpu = copy.deepcopy(small)
+    card = train_mode_step(small.to("cuda"), batch, kw)
+    cpu = train_mode_step(on_cpu, [t.cpu() for t in batch], {k: v.cpu() for k, v in kw.items()})
+    if any(cpu[3].values()):
+        raise AssertionError(f"CPU launches {cpu[3]}")
+    return card, cpu
+
+
+def step_gaps(got, want) -> dict:
+    """Two ``train_mode_step`` results apart: the largest loss gap; per
+    decoder gradient tensor the largest gap relative to its largest value;
+    the whole gradient's L2 gap relative to its norm; the running averages'
+    largest gaps relative to their largest values."""
+    (kl, kg, kst, _), (cl, cg, cst, _) = got, want
+    top = max(float(g.abs().max()) for g in cg.values())
+    gaps = {}
+    for n in cg:
+        scale = float(cg[n].abs().max())
+        # a tensor below 1 % of the largest |grad| is not resolved on its
+        # own (a conv bias in front of a batch-statistics BatchNorm has a
+        # zero true gradient): it is held to a tenth of the bar at the
+        # largest |grad| (the CPU tests' rule, tests/torch_nr_versions.py)
+        gaps[n] = float((kg[n] - cg[n]).abs().max()) / (scale if scale >= 1e-2 * top
+                                                         else 1e-1 * top)
+    worst = max(gaps, key=gaps.get)
+    return {"loss_gap": max(abs(kl[k] - cl[k]) for k in kl),
+            "worst_grad": [worst, gaps[worst]], "grad_l2": rel_l2(kg, cg),
+            "running_stats_gap": max((float((kst[k] - cst[k]).abs().max())
+                                      / max(float(cst[k].abs().max()), 1e-30)
+                                      for k in cst), default=0.0)}
+
+
+def scoremap_cpu_parity(gen) -> None:
+    """Phase nr_scoremap_cpu_parity: the score-map loss's fp32 training
+    step at 64² / 56² on the card against the port's CPU path: losses
+    within SCORE_ATOL, gradients per tensor within TRAIN_CPU_GRAD_RTOL."""
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig
+
+    cfg = NRModelConfig(transformer_decoder_depth=1, decoder_dtype="float32",
+                        dists=DISTSConfig(compute_dtype="float32"))
+    batch = train_batch(gen, 2, 64, 56)
+    sm = 1.0 + 1.5 * torch.rand((2, 64, 64, 3), generator=gen, device="cuda")
+    card, cpu = card_and_cpu_steps(small_nr(cfg), batch, score_map=sm)
+    gaps, counts = step_gaps(card, cpu), card[3]
+    if (gaps["loss_gap"] > SCORE_ATOL or gaps["worst_grad"][1] > TRAIN_CPU_GRAD_RTOL
+            or min(counts[k] for k in ("jbu", "channelnorm", "channelnorm_bwd")) == 0
+            or counts["windowed_tsd"]):
+        raise AssertionError(f"score-map card vs CPU: {gaps}, launches {counts}")
+    phase("nr_scoremap_cpu_parity", hw=[64, 56], vit_depth=2, decoder_depths=[1, 2],
+          losses=card[0], loss_gap=gaps["loss_gap"], worst_grad=gaps["worst_grad"],
+          grad_l2_gap=gaps["grad_l2"], grad_rtol=TRAIN_CPU_GRAD_RTOL, launches=counts)
+
+
+def dropout_masks(masks: list):
+    """Record every Dropout2d mask drawn inside the block (per sample and
+    channel: kept or not), in draw order."""
+    from nerf_qa_torch.models.nr import layers
+
+    real = layers.Dropout2d.forward
+
+    def record(self, x, generator=None):
+        y = real(self, x, generator)
+        if generator is not None and self.training and self.rate:
+            masks.append((y != 0).flatten(2).any(-1).cpu())
+        return y
+
+    layers.Dropout2d.forward = record
+    return _restoring(layers.Dropout2d, "forward", real)
+
+
+def recomputed_in_order(forward: list, recomputed: list) -> bool:
+    """Whether the backward's recomputation drew each stage's masks again:
+    the stages (three dropout layers each, two in the last) recompute last
+    to first."""
+    per_stage = [3] * 5 + [2]
+    if len(forward) != sum(per_stage) or len(recomputed) != len(forward):
+        return False
+    starts = np.cumsum([0] + per_stage)
+    rev = np.cumsum([0] + per_stage[::-1])
+    for i in range(6):
+        j = 5 - i
+        want = forward[starts[i]:starts[i + 1]]
+        got = recomputed[rev[j]:rev[j + 1]]
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            return False
+    return True
+
+
+@contextlib.contextmanager
+def _restoring(obj, name, value):
+    try:
+        yield
+    finally:
+        setattr(obj, name, value)
+
+
+def nr_remat(vgg, gen) -> dict[str, int]:
+    """Phase nr_remat: the bf16 training step at full width with
+    ``remat=True`` and ``remat=False`` from one generator state: losses and
+    gradients equal to REMAT_RTOL of the largest, the dropout masks equal
+    (the recomputation draws the forward's), launches per remat step (18
+    ChannelNorm forward + 17 recomputed: every stage's ChannelNorms but
+    trans2sem's, which sits outside the checkpoints; 18 backward; 4 JBU),
+    and each variant's peak memory and step time."""
+    weights, vit, jbu = nr_backbones()
+    batch = train_batch(gen)
+    trainer = make_trainer(vgg, weights, "bfloat16", vit, jbu)
+    model = trainer.model
+    base_cfg = model.decoder.cfg
+    trainer.train_step(*batch)  # warm-up
+    state = trainer.generator.get_state()
+    res = {}
+    for remat in (False, True):  # the same weights and generator state
+        model.decoder.cfg = base_cfg.replace(remat=remat)
+        masks = []
+        with dropout_masks(masks):
+            losses, grads = step_grads(trainer, batch, state)
+        res[remat] = dict(losses=losses, grads=grads, masks=masks,
+                          gen_after=trainer.generator.get_state())
+    for remat in (False, True):  # then steps: launches, memory, time
+        model.decoder.cfg = base_cfg.replace(remat=remat)
+        trainer.generator.set_state(state)
+        reset_launches()
+        trainer.train_step(*batch)
+        counts = launch_counts()
+        trainer.generator.set_state(state)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        trainer.train_step(*batch)
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        rate = turns(lambda: trainer.train_step(*batch), ("kernels",) * 2, model,
+                     TRAIN_TIMED)["kernels"]
+        res[remat].update(counts=counts, peak=peak, ms=[1e3 / r for r in rate])
+    plain, rem = res[False], res[True]
+    scale = max(float(g.abs().max()) for g in plain["grads"].values())
+    grad_gap = max(float((rem["grads"][n] - plain["grads"][n]).abs().max())
+                   for n in plain["grads"]) / scale
+    loss_gap = max(abs(rem["losses"][k] - plain["losses"][k])
+                   / max(abs(plain["losses"][k]), 1e-30) for k in plain["losses"])
+    n_fwd = len(plain["masks"])
+    same_masks = (len(rem["masks"]) == 2 * n_fwd - 1 and all(
+        torch.equal(a, b) for a, b in zip(rem["masks"][:n_fwd], plain["masks"])))
+    recomputed = rem["masks"][n_fwd:]
+    same_recompute = recomputed_in_order(plain["masks"][1:], recomputed)
+    want = dict(REMAT_LAUNCHES)
+    if not (grad_gap <= REMAT_RTOL and loss_gap <= REMAT_RTOL and same_masks
+            and same_recompute and torch.equal(rem["gen_after"], plain["gen_after"])
+            and rem["counts"] == want and plain["counts"]["channelnorm"] == NR_CN_PER_BATCH):
+        raise AssertionError(f"remat: loss gap {loss_gap}, gradient gap {grad_gap}, masks "
+                             f"{same_masks, same_recompute}, launches {rem['counts']} "
+                             f"(expected {want}), plain {plain['counts']}")
+    phase("nr_remat", decoder_dtype="bfloat16", batch=TRAIN_BATCH, vit_depth=12,
+          loss_rel_gap=loss_gap, grad_gap_of_largest=grad_gap, rtol=REMAT_RTOL,
+          dropout_masks=n_fwd, recomputed_masks=len(recomputed),
+          launches_remat=rem["counts"], launches_plain=plain["counts"],
+          step_peak_gib={"remat": rem["peak"], "plain": plain["peak"]},
+          step_ms={"remat": rem["ms"], "plain": plain["ms"]})
+    del trainer, model
+    torch.cuda.empty_cache()
+    return rem["counts"]
+
+
+def nr_versions(vgg, gen) -> None:
+    """Phase nr_versions: v1-v6 at full width (ViT-S/14 depth 12, decoder
+    depths 2 / 2, bf16 VGG and mixer, batch 4): one scoring batch (moments
+    kernel, 6 launches, against eager statistics within SCORE_ATOL) and one
+    training step (forward, losses with the v6 targets, backward, Adam,
+    the BatchNorm running averages updated), 0 JBU and 0 ChannelNorm
+    launches (and no moments launch for v4, which computes no DISTS),
+    frames/s; then each version's fp32 training step on the card
+    against the port's CPU path at 64² / 56²."""
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig
+    from nerf_qa_torch.models.nr.model import NRModel
+    from nerf_qa_torch.train.nr_train import NRTrainer
+    from nerf_qa_torch.config import TrainConfig
+
+    weights, vit, _ = nr_backbones()
+    gt, render, r224 = train_batch(gen)
+    std = torch.full((TRAIN_BATCH,), 0.05, device="cuda")
+    mean = torch.full((TRAIN_BATCH,), 0.3, device="cuda")
+    rows = {}
+    for v in range(1, 7):
+        kernel = DISTSConfig(compute_dtype="bfloat16", stats_impl="kernel")
+        eager = kernel.replace(stats_impl="eager")
+        cfg = NRModelConfig(version=v, decoder_dtype="bfloat16", dists=kernel)
+        model = NRModel(vgg, weights, cfg, vit=vit).to("cuda")
+        with torch.no_grad():
+            model(render, r224)  # warm-up
+            reset_launches()
+            s_k = model(render, r224)
+            score_counts = launch_counts()
+            model.cfg = cfg.replace(dists=eager)
+            s_e = model(render, r224)
+        gap = float((s_k - s_e).abs().max())
+        score_rate = turns(lambda: _score(model, render, r224, kernel),
+                           ("kernels",) * 2, model, 3)["kernels"]
+        model.cfg = cfg.replace(dists=eager)
+        trainer = NRTrainer(model, TrainConfig(lr=TRAIN_LR, schedule="constant",
+                                               batch_size=TRAIN_BATCH), steps_per_epoch=1)
+        trainer.init(seed=0)
+        stats0 = {k: t.clone() for k, t in model.decoder.state_dict().items()
+                  if k.endswith("running_mean")}
+        reset_launches()
+        losses = trainer.train_step(gt, render, r224, std, mean)
+        train_counts = launch_counts()
+        moved = all(not torch.equal(t, model.decoder.state_dict()[k])
+                    for k, t in stats0.items())
+        train_rate = turns(lambda: trainer.train_step(gt, render, r224, std, mean),
+                           ("kernels",) * 2, model, 3)["kernels"]
+        want_score = dict(VERSION_SCORE_LAUNCHES, moments=0 if v == 4 else 6)
+        ok = (gap <= SCORE_ATOL and bool(torch.isfinite(s_k).all()) and moved and stats0
+              and score_counts == want_score
+              and train_counts == dict(VERSION_TRAIN_LAUNCHES)
+              and all(math.isfinite(float(x)) for x in losses.values()))
+        if not ok:
+            raise AssertionError(f"NR v{v}: kernel vs eager {gap}, stats moved {moved}, "
+                                 f"launches {score_counts} / {train_counts}, losses {losses}")
+        rows[f"v{v}"] = dict(score_gap=gap, scores=s_k.tolist(),
+                             losses={k: float(x) for k, x in losses.items()},
+                             score_launches=score_counts, train_launches=train_counts,
+                             batchnorms=len(stats0),
+                             score_frames_per_s=[TRAIN_BATCH * r for r in score_rate],
+                             train_frames_per_s=[TRAIN_BATCH * r for r in train_rate])
+        del trainer, model
+        torch.cuda.empty_cache()
+    phase("nr_versions", batch=TRAIN_BATCH, vit_depth=12, decoder_depths=[2, 2],
+          vgg_dtype="bfloat16", decoder_dtype="bfloat16", score_atol=SCORE_ATOL,
+          versions=rows)
+    versions_cpu_parity()
+
+
+def _score(model, render, r224, cfg):
+    model.cfg = model.cfg.replace(dists=cfg)
+    with torch.no_grad():
+        return model(render, r224)
+
+
+def unbiased_batchnorm():
+    """Inside the block, BatchNorm in training mode normalises with the
+    unbiased batch variance (``Tensor.var``'s default) in place of flax's
+    biased one: the fault that ``versions_cpu_parity`` must fail on."""
+    from nerf_qa_torch.models.nr import layers
+
+    real = layers.BatchNorm.forward
+
+    def forward(self, x):
+        real(self, x)  # the running averages move as flax moves them
+        xf = x.float()
+        mean, var = xf.mean(dim=(0, 2, 3)), xf.var(dim=(0, 2, 3))
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(self.dtype)
+
+    layers.BatchNorm.forward = forward
+    return _restoring(layers.BatchNorm, "forward", real)
+
+
+def versions_cpu_parity() -> None:
+    """Phase nr_versions_cpu_parity: for v1-v6, one fp32 training-mode
+    step's forward and backward (no generator: no dropout; BatchNorm on
+    the batch's statistics) on the card against the port's CPU path at
+    64² / 56² (ViT depth 2, decoder depths 1 / 2), on inputs from a seed
+    of their own (VERSION_SEED): losses within SCORE_ATOL, the running
+    averages after it within VERSION_STATS_RTOL, the decoder gradient per
+    tensor within VERSION_GRAD_RTOL (``step_gaps``) and as a whole within
+    VERSION_GRAD_L2. The same figures for the CPU step with the fault
+    ``unbiased_batchnorm`` against the CPU step: the gradient bars must
+    fail on it."""
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig
+
+    batch = train_batch(torch.Generator(device="cuda").manual_seed(VERSION_SEED), 2, 64, 56)
+    kw = {"score_std": torch.tensor([0.05, 0.06], device="cuda"),
+          "score_mean": torch.tensor([0.3, 0.35], device="cuda")}
+
+    def grads_pass(g):
+        return g["worst_grad"][1] <= VERSION_GRAD_RTOL and g["grad_l2"] <= VERSION_GRAD_L2
+
+    rows = {}
+    for v in range(1, 7):
+        cfg = NRModelConfig(version=v, transformer_decoder_depth=1, decoder_dtype="float32",
+                            dists=DISTSConfig(compute_dtype="float32"))
+        small = small_nr(cfg)
+        on_cpu = copy.deepcopy(small)
+        card, cpu = card_and_cpu_steps(small, batch, **kw)
+        gaps = step_gaps(card, cpu)
+        with unbiased_batchnorm():
+            fault = step_gaps(train_mode_step(on_cpu, [t.cpu() for t in batch],
+                                              {k: t.cpu() for k, t in kw.items()}), cpu)
+        if not (gaps["loss_gap"] <= SCORE_ATOL and grads_pass(gaps)
+                and gaps["running_stats_gap"] <= VERSION_STATS_RTOL
+                and not any(card[3].values()) and not grads_pass(fault)):
+            raise AssertionError(f"NR v{v} card vs CPU: {gaps}, launches {card[3]}; "
+                                 f"the unbiased-variance fault {fault}")
+        rows[f"v{v}"] = dict(gaps, unbiased_variance_fault=fault)
+    phase("nr_versions_cpu_parity", hw=[64, 56], vit_depth=2, decoder_depths=[1, 2],
+          seed=VERSION_SEED, loss_atol=SCORE_ATOL, grad_rtol=VERSION_GRAD_RTOL,
+          grad_l2=VERSION_GRAD_L2, stats_rtol=VERSION_STATS_RTOL, versions=rows)
+
+
+def nr_feature_cache(vgg, gen) -> None:
+    """Phase nr_feature_cache: ``tools.cache_nr_features`` on a synthetic
+    tree on the card (ViT-S/14 depth 12), then a training step on cached
+    tokens against the uncached step from the same decoder, generator and
+    canonical (un-augmented) frames: losses within CACHE_ATOL (fp16
+    tokens; the JAX package's bar), and both steps timed."""
+    import io
+
+    from nerf_qa_torch.data.datasets import NerfNRQADataset
+    from nerf_qa_torch.data.feature_cache import TokenCacheReader
+    from nerf_qa_torch.tools import cache_nr_features
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_nr_tree
+    from nerf_qa_torch.tools.train_nr import read_rows
+
+    weights, vit, jbu = nr_backbones()
+    with tempfile.TemporaryDirectory() as tmp:
+        csv = make_nr_tree(f"{tmp}/data", scenes=("chair", "drums"), methods=("nerfacto",),
+                           frames=4, hw=(96, 128))
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cache_nr_features.main(["--data-dir", f"{tmp}/data", "--scores-csv", csv,
+                                         "--cache-dir", f"{tmp}/cache", "--num-workers",
+                                         "2", "--batch-size", "4"])
+        cache_s = time.perf_counter() - t0
+        rows = read_rows(csv)
+        items = [NerfNRQADataset(rows, f"{tmp}/data", mode="gt")[i] for i in range(4)]
+        reader = TokenCacheReader(f"{tmp}/cache", rows)
+        got, total = reader.coverage()
+        toks = torch.from_numpy(reader.gather([it[4] for it in items],
+                                               [it[5] for it in items])).cuda()
+    gt = torch.from_numpy(np.stack([it[0] for it in items])).cuda()
+    r256 = torch.from_numpy(np.stack([it[1]["256x256"] for it in items])).cuda()
+    r224 = torch.from_numpy(np.stack([it[1]["224x224"] for it in items])).cuda()
+    trainer = make_trainer(vgg, weights, "bfloat16", vit, jbu)
+    trainer.train_step(gt, r256, r224)  # warm-up
+    state = trainer.generator.get_state()
+    direct, _ = step_grads(trainer, (gt, r256, r224), state)
+    cached, _ = step_grads(trainer, (gt, r256, r224), state, sem_tokens=toks)
+    gap = max(abs(direct[k] - cached[k]) for k in direct)
+    rates = {}
+    for name, kw in (("direct", {}), ("cached", {"sem_tokens": toks}),
+                     ("cached", {"sem_tokens": toks}), ("direct", {})):
+        rates.setdefault(name, []).extend(turns(
+            lambda: trainer.train_step(gt, r256, r224, **kw), ("kernels",), trainer.model,
+            TRAIN_TIMED)["kernels"])
+    if rc != 0 or (got, total) != (2, 2) or gap > CACHE_ATOL:
+        raise AssertionError(f"feature cache: rc {rc}, coverage {got}/{total}, loss gap "
+                             f"{gap}")
+    phase("nr_feature_cache", videos=total, frames=8, cache_build_s=cache_s,
+          tokens_shape=list(toks.shape), loss_gap=gap, atol=CACHE_ATOL,
+          direct_losses=direct, cached_losses=cached,
+          steps_per_s=rates, frames_per_s={k: [TRAIN_BATCH * r for r in v]
+                                           for k, v in rates.items()},
+          log=out.getvalue().strip().splitlines()[-1])
+    del trainer
+    torch.cuda.empty_cache()
+
+
+def nr_cli_full() -> dict[str, int]:
+    """Phase nr_cli_full: on a synthetic tree on the card, ``prep_nr
+    --score-maps`` (the moments kernel for the DISTS columns, the T/S
+    kernel for the maps: PREP_TSD_PER_FRAME launches a frame), its float
+    maps against the plain T/S version (SCOREMAP_ATOL) and its PNG levels
+    against the plain maps' (within one level); then ``train_nr`` for an
+    epoch each with ``--mode score-map``, ``--remat``, ``--feature-cache``
+    (after ``cache_nr_features``), ``--test-scores-csv`` (a NeRF-QA-layout
+    benchmark of the tree's frame directories) and ``--version 6``; then
+    ``score --nr --nr-version 6`` of the last checkpoint. Returns the T/S
+    launches of the prep."""
+    import io
+    import shutil
+
+    from PIL import Image
+
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.core import adists
+    from nerf_qa_torch.data.imaging import load_image_rgb, resize_image
+    from nerf_qa_torch.tools import cache_nr_features, prep_nr, score, train_nr
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_nr_tree
+
+    res = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = f"{tmp}/data"
+        make_nr_tree(data, scenes=("chair", "drums", "room"),
+                     methods=("nerfacto", "instant-ngp"), frames=4, hw=(96, 128))
+        out = io.StringIO()
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = prep_nr.main(["--data-dir", data, "--score-maps"])
+        prep_s = time.perf_counter() - t0
+        prep_counts = launch_counts()
+        frames = 3 * 2 * 4
+        if rc != 0 or prep_counts["windowed_tsd"] != PREP_TSD_PER_FRAME * frames \
+                or prep_counts["moments"] == 0:
+            raise AssertionError(f"prep_nr: rc {rc}, launches {prep_counts}")
+        # the float maps, kernel against plain, and the PNG levels
+        vgg = resolve_vgg_params(seed=0).cuda()
+        map_err, level_err = 0.0, 0
+        for scene in ("chair", "drums", "room"):
+            for method in ("nerfacto", "instant-ngp"):
+                color = f"{data}/{scene}/{method}/color"
+                for name in sorted(os.listdir(color)):
+                    r = resize_image(load_image_rgb(f"{color}/{name}"), 256, 256)
+                    g = resize_image(load_image_rgb(f"{data}/{scene}/gt/{name}"), 256, 256)
+                    x, y = (torch.from_numpy(a[None]).cuda() for a in (g, r))
+                    cfg = ADISTSConfig(compute_dtype="bfloat16")
+                    with torch.no_grad():
+                        k_map = adists.forward(vgg, x, y, cfg, as_map=True)
+                        p_map = adists.forward(vgg, x, y, cfg.replace(fused_tsd=False),
+                                               as_map=True)
+                    map_err = max(map_err, float((k_map - p_map).abs().max()))
+                    enc, _, _ = prep_nr.encode_log_map(
+                        -np.log10(np.clip(p_map[0].cpu().numpy(), 1e-6, None)))
+                    png = np.asarray(Image.open(f"{data}/{scene}/{method}/score-map/{name}"),
+                                     np.int32)
+                    level_err = max(level_err, int(np.abs(png - enc.astype(np.int32)).max()))
+        if map_err > SCOREMAP_ATOL or level_err > 1:
+            raise AssertionError(f"prep_nr maps: kernel vs plain {map_err}, PNG levels "
+                                 f"{level_err}")
+        csv = f"{data}/output.csv"
+        # a NeRF-QA-layout benchmark over the tree's render directories
+        bench = f"{tmp}/bench"
+        with open(f"{bench}.csv", "w") as f:
+            f.write("reference_filename,distorted_filename,MOS,DMOS,DISTS\n")
+            for i, (scene, method, ref) in enumerate((
+                    ("chair", "nerfacto", "lego"), ("drums", "nerfacto", "ship"),
+                    ("room", "instant-ngp", "truck"), ("chair", "instant-ngp", "m60"))):
+                shutil.copytree(f"{data}/{scene}/{method}/color", f"{bench}/v{i}")
+                f.write(f"{ref}_reference.mp4,v{i}.mp4,{1 + i},{5 - 0.5 * i},"
+                        f"{0.1 + 0.05 * i}\n")
+        with contextlib.redirect_stdout(out):
+            rc_cache = cache_nr_features.main(["--data-dir", data, "--scores-csv", csv,
+                                               "--cache-dir", f"{tmp}/cache",
+                                               "--num-workers", "2"])
+        common = ["--data-dir", data, "--scores-csv", csv, "--epochs", "1",
+                  "--batch-size", str(TRAIN_BATCH), "--num-workers", "2"]
+        runs = {
+            "score-map": ["--mode", "score-map"],
+            "remat": ["--remat"],
+            "feature-cache": ["--feature-cache", f"{tmp}/cache"],
+            "test-scores-csv": ["--test-scores-csv", f"{bench}.csv", "--test-data-dir",
+                                bench, "--test-every", "1", "--test-max-frames", "4"],
+            "version-6": ["--version", "6"],
+        }
+        for name, flags in runs.items():
+            reset_launches()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc_run = train_nr.main(common + ["--output-dir", f"{tmp}/run-{name}",
+                                                 *flags])
+            counts = launch_counts()
+            with open(f"{tmp}/run-{name}/metrics.jsonl") as f:
+                logs = [json.loads(line) for line in f]
+            keys = set().union(*logs)
+            want_kernels = (("jbu", "channelnorm", "channelnorm_bwd") if name != "version-6"
+                            else ())
+            ok = (rc_run == 0 and rc_cache == 0
+                  and all(counts[k] > 0 for k in want_kernels)
+                  and (name != "version-6" or counts["channelnorm"] == counts["jbu"] == 0)
+                  and counts["windowed_tsd"] == 0
+                  and (name != "score-map" or "Train Metrics Dict/score_map_l1" in keys)
+                  and (name != "test-scores-csv" or "Test Metrics Dict/mos/plcc" in keys))
+            if not ok:
+                raise AssertionError(f"train_nr {name}: rc {rc_run}, launches {counts}, "
+                                     f"keys {sorted(keys)}, output {out.getvalue()[-2000:]}")
+            res[name] = dict(seconds=time.perf_counter() - t0, launches=counts,
+                             metrics={k: v for k, v in logs[-1].items()
+                                      if k.startswith(("Train", "Test"))})
+        with contextlib.redirect_stdout(out):
+            rc_score = score.main(["--nr", "--nr-ckpt", f"{tmp}/run-version-6/ckpt",
+                                   "--nr-version", "6", "--dist",
+                                   f"{data}/room/nerfacto/color", "--json",
+                                   "--batch-size", "4"])
+        result = json.loads(out.getvalue().strip().splitlines()[-1])
+    if rc_score != 0 or result["nr"]["frames"] != 4 or not math.isfinite(
+            result["nr"]["video_score"]):
+        raise AssertionError(f"score --nr v6: rc {rc_score}, {result}")
+    phase("nr_cli_full", prep_seconds=prep_s, prep_launches=prep_counts,
+          prep_frames=frames, maps_kernel_vs_plain=map_err, maps_atol=SCOREMAP_ATOL,
+          png_level_err=level_err, train_runs=res, score_nr_v6=result)
+    return prep_counts
+
+
+def subpixel_choice(gen) -> None:
+    """Phase subpixel_choice: the NR decoders' 2x upsample at their shapes,
+    batch 4 (v8: bf16 ConvTransposeLayer inputs; v1-v6: the fp32 raw
+    transposed convs), forward and forward + backward, as the transposed
+    conv and as its sub-pixel form: agreement, times in turns, the totals,
+    and the faster form against the port's default on the card, the
+    transposed conv (``ops/subpixel.conv_transpose_2x``)."""
+    from nerf_qa_torch.ops import subpixel
+
+    shapes = [("v8", torch.bfloat16, cin, cout, hw) for cin, cout, hw in
+              ((896, 896, 16), (896, 640, 32), (640, 512, 64), (512, 448, 128))]
+    shapes += [("v1-v5", torch.float32, c, c, hw) for c, hw in
+               ((896, 16), (896, 32), (448, 64), (224, 128))]
+    shapes += [("v6", torch.float32, cin, cout, hw) for cin, cout, hw in
+               ((896, 896, 16), (896, 448, 32), (448, 224, 64), (224, 112, 128))]
+    forms = {"transpose": subpixel.conv_transpose_2x_dense,
+             "subpixel": subpixel.conv_transpose_2x_subpixel}
+    rows, tot = [], {f: {"fwd_ms": 0.0, "fwd_bwd_ms": 0.0} for f in forms}
+    for gen_name, dt, cin, cout, hw in shapes:
+        x = torch.randn((TRAIN_BATCH, cin, hw, hw), generator=gen, device="cuda").to(dt)
+        x = x.contiguous(memory_format=torch.channels_last)
+        w = torch.randn((cin, cout, 3, 3), generator=gen, device="cuda") / math.sqrt(9 * cin)
+        b = torch.randn((cout,), generator=gen, device="cuda")
+        g = torch.randn((TRAIN_BATCH, cout, 2 * hw, 2 * hw), generator=gen,
+                        device="cuda").to(dt)
+        row = {"decoder": gen_name, "dtype": str(dt).split(".")[-1],
+               "shape": [TRAIN_BATCH, cin, hw, hw], "out_chns": cout}
+        with true_fp32_if(dt):
+            want = forms["transpose"](x, w.to(dt), b).float()
+            got = forms["subpixel"](x, w.to(dt), b).float()
+            row["max_abs_err"] = float((got - want).abs().max())
+            tol = 1e-4 if dt == torch.float32 else 4e-2 * float(want.abs().max())
+            if row["max_abs_err"] > tol:
+                raise AssertionError(f"subpixel {row}: error over {tol}")
+            for f, fn in forms.items():
+                xx = x.detach().requires_grad_(True)
+                ww = w.to(dt).detach().requires_grad_(True)
+
+                def fwd_bwd():
+                    fn(xx, ww, b).backward(g)
+
+                row[f"{f}_fwd_ms"] = time_ms(lambda: fn(x, w.to(dt), b), 10)
+                row[f"{f}_fwd_bwd_ms"] = time_ms(fwd_bwd, 10)
+            for f in forms:  # the second turn, reversed
+                row[f"{f}_fwd_ms_again"] = time_ms(lambda: forms[f](x, w.to(dt), b), 10)
+        for f in forms:
+            tot[f]["fwd_ms"] += row[f"{f}_fwd_ms"]
+            tot[f]["fwd_bwd_ms"] += row[f"{f}_fwd_bwd_ms"]
+        rows.append(row)
+        del x, w, g
+    faster = min(forms, key=lambda f: tot[f]["fwd_bwd_ms"])
+    phase("subpixel_choice", batch=TRAIN_BATCH, rows=rows, totals=tot, faster=faster,
+          cuda_default="transpose", default_is_faster=faster == "transpose")
+
+
+def true_fp32_if(dt):
+    from nerf_qa_torch.config import true_fp32
+
+    return true_fp32() if dt == torch.float32 else contextlib.nullcontext()
+
 
 def fr_batch(gen, n: int, hw: int):
     """n (dist, ref) pairs of hw² renders made on the card, the noise level
@@ -2104,6 +2993,18 @@ def main() -> int:
     cn_bwd_err, cn_bwd_rows = check_cn_bwd(gen, train_calls)
     nr_train_cpu_parity(gen)
     train_cli_run()
+
+    # 9b. the rest of NR training: the score-map objective, remat, v1-v6,
+    # the token cache, the full NR CLI run and the sub-pixel choice
+    for name, run in (("nr_scoremap_train", lambda: nr_scoremap_train(model, gen)),
+                      ("nr_remat", lambda: nr_remat(model, gen)),
+                      ("nr_versions", lambda: nr_versions(model, gen)),
+                      ("nr_feature_cache", lambda: nr_feature_cache(model, gen)),
+                      ("nr_cli_full", nr_cli_full),
+                      ("subpixel_choice", lambda: subpixel_choice(gen))):
+        t0 = time.perf_counter()
+        run()
+        phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
 
     # 10. FR training at full width in both pyramid dtypes, the card's fp32
     # step against the CPU path, the FR CLIs and the FR quality certificate

@@ -9,8 +9,8 @@ reference key layout, the optimizer, the epoch, the dropout generator's
 state and the DISTS α/β (``tools/train_nr.py``); ``compat/pretrained.
 load_nr_torch_file`` reads a checkpoint directory, so ``tools/score.py
 --nr --nr-ckpt`` scores with it. A JAX orbax checkpoint (a step directory
-without ``state.pt``) raises: reading orbax needs JAX (ROADMAP Queue 1
-item 11).
+without ``state.pt``) raises: reading orbax needs JAX, so it is not
+ported (ROADMAP Queue 1, "Not to port").
 """
 from __future__ import annotations
 
@@ -27,8 +27,8 @@ import torch
 CHECKPOINT_FORMAT = 2
 STATE_FILE = "state.pt"
 
-ORBAX_TODO = ("a JAX orbax checkpoint cannot be read without JAX: reading "
-              "orbax checkpoints is not yet ported (ROADMAP Queue 1 item 11)")
+ORBAX_NOT_PORTED = ("a JAX orbax checkpoint cannot be read without JAX, so "
+                    "reading one is not ported (ROADMAP Queue 1, \"Not to port\").")
 
 
 def step_dir(ckpt_dir: str, step: int) -> str:
@@ -79,7 +79,7 @@ def restore_checkpoint(ckpt_dir: str, step: int | None = None
     path = os.path.join(step_dir(ckpt_dir, step), STATE_FILE)
     if not os.path.exists(path):
         raise ValueError(f"{step_dir(ckpt_dir, step)} holds no {STATE_FILE}: "
-                         f"{ORBAX_TODO}")
+                         f"{ORBAX_NOT_PORTED}")
     return step, torch.load(path, map_location="cpu", weights_only=True)
 
 

@@ -159,63 +159,122 @@ def jbu_state_dict_from_jax(params: Mapping[str, Any]) -> dict[str, torch.Tensor
     return sd
 
 
-def _conv_layer(sd: dict, prefix: str, layer: Mapping[str, Any]) -> None:
-    """flax ConvLayer / ConvTransposeLayer -> reference ConvLayer keys. A
-    transposed kernel (HWIO) becomes torch's (in, out, kh, kw) with the
-    spatial flip undone (compat/torch_nr._conv_transpose inverted)."""
+def _conv_transpose(sd: dict, prefix: str, layer: Mapping[str, Any]) -> None:
+    """flax ConvTranspose (HWIO, torch's alignment through padding ((1, 2),
+    (1, 2)) and a flipped kernel) -> torch ConvTranspose2d (in, out, kh,
+    kw), the flip undone (compat/torch_nr._conv_transpose inverted)."""
+    k = np.asarray(layer["kernel"], np.float32)
+    sd[f"{prefix}.weight"] = _t(k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
+    sd[f"{prefix}.bias"] = _t(layer["bias"])
+
+
+def _conv_layer(sd: dict, prefix: str, layer: Mapping[str, Any],
+                stats: Mapping[str, Any] | None = None) -> None:
+    """flax ConvLayer / ConvTransposeLayer -> reference ConvLayer keys: the
+    conv, then ChannelNorm (``norm_layer.norm.*``) or BatchNorm
+    (``norm_layer.{weight, bias}``, and from ``stats``, the layer's
+    ``batch_stats``, ``running_mean`` / ``running_var`` with
+    ``num_batches_tracked`` 0)."""
     if "ConvTranspose_0" in layer:
-        k = np.asarray(layer["ConvTranspose_0"]["kernel"], np.float32)
-        sd[f"{prefix}.conv.weight"] = _t(k.transpose(2, 3, 0, 1)[:, :, ::-1, ::-1])
-        sd[f"{prefix}.conv.bias"] = _t(layer["ConvTranspose_0"]["bias"])
+        _conv_transpose(sd, f"{prefix}.conv", layer["ConvTranspose_0"])
     else:
         sd[f"{prefix}.conv.weight"], sd[f"{prefix}.conv.bias"] = _conv1x1_or_kxk(
             layer["Conv_0"])
-    sd[f"{prefix}.norm_layer.norm.weight"] = _t(layer["ChannelNorm_0"]["scale"])
-    sd[f"{prefix}.norm_layer.norm.bias"] = _t(layer["ChannelNorm_0"]["bias"])
+    if "ChannelNorm_0" in layer:
+        sd[f"{prefix}.norm_layer.norm.weight"] = _t(layer["ChannelNorm_0"]["scale"])
+        sd[f"{prefix}.norm_layer.norm.bias"] = _t(layer["ChannelNorm_0"]["bias"])
+        return
+    sd[f"{prefix}.norm_layer.weight"] = _t(layer["BatchNorm_0"]["scale"])
+    sd[f"{prefix}.norm_layer.bias"] = _t(layer["BatchNorm_0"]["bias"])
+    if stats is not None:
+        sd[f"{prefix}.norm_layer.running_mean"] = _t(stats["BatchNorm_0"]["mean"])
+        sd[f"{prefix}.norm_layer.running_var"] = _t(stats["BatchNorm_0"]["var"])
+        sd[f"{prefix}.norm_layer.num_batches_tracked"] = torch.tensor(0)
+
+
+def _conv_layers(module: Mapping[str, Any]) -> list[str]:
+    return sorted((k for k in module if k.startswith("ConvLayer_")),
+                  key=lambda k: int(k.split("_")[1]))
 
 
 def nr_decoder_state_dict_from_jax(params: Mapping[str, Any],
                                    qkv_bias: bool | None = None,
-                                   layer_scale: bool | None = None
-                                   ) -> dict[str, torch.Tensor]:
-    """JAX v7/v8 ``NRDecoder`` params (numpy) -> the reference decoder
-    ``state_dict`` (``transformer_decoder.{i}``, ``trans2sem``,
-    ``decoder.{i}.block.{j}``, ``decoder.{i}.upsample_layer``): the keys
-    and values ``compat/export_torch.export_nr_state_dict`` writes.
-    ``NRDecoder.from_state_dict`` loads it with ``strict=True``. By default
-    the blocks' qkv bias and LayerScale are written when they differ from
-    the reference's implicit zero bias and unit gamma; True writes them
-    always, False never."""
+                                   layer_scale: bool | None = None,
+                                   batch_stats: Mapping[str, Any] | None = None,
+                                   version: int = 8) -> dict[str, torch.Tensor]:
+    """JAX ``NRDecoder`` params of NR ``version`` (numpy) -> the port
+    decoder's ``state_dict``: for v7/v8 the reference decoder's keys and
+    values (``transformer_decoder.{i}``, ``trans2sem``,
+    ``decoder.{i}.block.{j}``, ``decoder.{i}.upsample_layer``), those
+    ``compat/export_torch.export_nr_state_dict`` writes; for v1-v6 the same
+    names over the legacy stages (the raw transposed conv as
+    ``upsample_layer``), ``refine_down.{k}.{downsample_layer, block.{j}}``
+    and ``score_reg.block.{j}``, with the BatchNorms' running averages from
+    ``batch_stats`` (the JAX ``batch_stats`` collection; left out without
+    it, for a gradient or an optimizer moment). ``NRDecoder.from_state_dict``
+    loads it with ``strict=True``. By default the blocks' qkv bias and
+    LayerScale are written when they differ from the reference's implicit
+    zero bias and unit gamma; True writes them always, False never."""
     sd: dict[str, torch.Tensor] = {}
+    bs = batch_stats or {}
+
+    def conv_layer(prefix, layer, path):
+        stats = bs
+        for k in path:
+            stats = stats.get(k, {}) if stats is not None else None
+        _conv_layer(sd, prefix, layer, stats if batch_stats is not None else None)
+
     n_trans = sum(1 for k in params if k.startswith("trans") and k != "trans2sem")
     for i in range(n_trans):
         _block(sd, f"transformer_decoder.{i}", params[f"trans{i}"],
                qkv_bias=qkv_bias, layer_scale=layer_scale)
     if "trans2sem" in params:
-        _conv_layer(sd, "trans2sem", params["trans2sem"])
-    n_refine = sum(1 for k in params if k.startswith("refine"))
+        conv_layer("trans2sem", params["trans2sem"], ["trans2sem"])
+    if "score_reg" in params:
+        for j, name in enumerate(_conv_layers(params["score_reg"])):
+            conv_layer(f"score_reg.block.{j}", params["score_reg"][name],
+                       ["score_reg", name])
+    n_refine = sum(1 for k in params if k.startswith("refine") and k[6:].isdigit())
     for i in range(n_refine):
-        stage = params[f"refine{i}"]
-        convs = sorted((k for k in stage if k.startswith("ConvLayer_")),
-                       key=lambda k: int(k.split("_")[1]))
-        if "ConvTransposeLayer_0" in stage:
-            tail = stage["ConvTransposeLayer_0"]
-        else:  # the non-upsampling stages end in a plain ConvLayer
-            tail = stage[convs.pop()]
+        key = f"refine{i}"
+        stage = params[key]
+        convs = _conv_layers(stage)
+        if "ConvTransposeLayer_0" in stage:  # v7/v8 upsampling stage
+            tail = ("ConvTransposeLayer_0", False)
+        elif "ConvTranspose_0" in stage:  # v1-v6 raw transposed conv
+            tail = ("ConvTranspose_0", True)
+        elif version >= 6:  # v7/v8 and v6 end the other stages in a ConvLayer
+            tail = (convs.pop(), False)
+        else:  # v1-v5 stages that do not upsample do not resample
+            tail = None
         for j, name in enumerate(convs):
-            _conv_layer(sd, f"decoder.{i}.block.{j}", stage[name])
-        _conv_layer(sd, f"decoder.{i}.upsample_layer", tail)
+            conv_layer(f"decoder.{i}.block.{j}", stage[name], [key, name])
+        if tail is not None and tail[1]:
+            _conv_transpose(sd, f"decoder.{i}.upsample_layer", stage[tail[0]])
+        elif tail is not None:
+            conv_layer(f"decoder.{i}.upsample_layer", stage[tail[0]], [key, tail[0]])
+    n_down = sum(1 for k in params if k.startswith("refine_down"))
+    for k in range(n_down):
+        key = f"refine_down{k}"
+        stage = params[key]
+        if "Conv_0" in stage:
+            (sd[f"refine_down.{k}.downsample_layer.weight"],
+             sd[f"refine_down.{k}.downsample_layer.bias"]) = _conv1x1_or_kxk(
+                stage["Conv_0"])
+        for j, name in enumerate(_conv_layers(stage)):
+            conv_layer(f"refine_down.{k}.block.{j}", stage[name], [key, name])
     return sd
 
 
 def nr_decoder_tensors_from_jax(tree: Mapping[str, Any],
-                                like: Mapping[str, Any]) -> dict[str, torch.Tensor]:
+                                like: Mapping[str, Any],
+                                version: int = 8) -> dict[str, torch.Tensor]:
     """A pytree shaped like the JAX decoder's params (a gradient, Adam's
     ``mu`` or ``nu``), numpy, -> tensors under the keys of the decoder
     ``state_dict`` ``like``, moved and flipped as the weights are."""
     return nr_decoder_state_dict_from_jax(
         tree, qkv_bias="transformer_decoder.0.attn.qkv.bias" in like,
-        layer_scale="transformer_decoder.0.ls1.gamma" in like)
+        layer_scale="transformer_decoder.0.ls1.gamma" in like, version=version)
 
 
 def adam_state_dict_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any],
@@ -227,8 +286,9 @@ def adam_state_dict_from_jax(count, mu: Mapping[str, Any], nu: Mapping[str, Any]
     nu and ``step`` = count for each parameter, in the decoder's parameter
     order. Load it with ``optimizer.load_state_dict``."""
     like = decoder.state_dict()
-    m = nr_decoder_tensors_from_jax(mu, like)
-    v = nr_decoder_tensors_from_jax(nu, like)
+    version = decoder.cfg.version
+    m = nr_decoder_tensors_from_jax(mu, like, version)
+    v = nr_decoder_tensors_from_jax(nu, like, version)
     names = [name for name, _ in decoder.named_parameters()]
     if set(names) != set(m):
         raise ValueError(f"Adam state keys {sorted(set(m) ^ set(names))} do not "

@@ -283,30 +283,41 @@ def _nr_checkpoint_file(path: str) -> str | None:
     return None
 
 
+_BATCHNORM_KEY = re.compile(r"\.(running_mean|running_var|num_batches_tracked)$")
+
+
+def _as_float(v) -> torch.Tensor:
+    t = torch.as_tensor(v)
+    return t.float() if t.is_floating_point() else t
+
+
 def load_nr_torch_file(path: str):
-    """A reference-layout NR ``.pth`` (train-nr.py's saved state, or the
-    JAX package's compat/export_torch.py ``--kind nr`` output), or a port
-    training checkpoint (``tools/train_nr.py``'s ``ckpt`` directory, one of
-    its ``step_<N>`` directories or their ``state.pt``) -> (decoder
-    state_dict, DISTS α/β arrays or None). A JAX orbax checkpoint
-    directory cannot be read without JAX and raises."""
+    """A reference-layout NR ``.pth`` (train-nr.py's saved v7/v8 state, or
+    the JAX package's compat/export_torch.py ``--kind nr`` output), or a
+    port training checkpoint (``tools/train_nr.py``'s ``ckpt`` directory,
+    one of its ``step_<N>`` directories or their ``state.pt``; any
+    version, BatchNorm buffers included) -> (decoder state_dict, DISTS α/β
+    arrays or None). A JAX orbax checkpoint directory cannot be read
+    without JAX and raises (ROADMAP, "Not to port"). A ``.pth`` with
+    BatchNorm entries (a reference v1-v6 decoder) raises: neither package
+    maps that layout (the JAX package's compat/torch_nr.py reads only the
+    ChannelNorm one), and none of it is loaded."""
     if os.path.isdir(path):
         state_file = _nr_checkpoint_file(path)
         if state_file is None:
             raise ValueError(
                 f"{path} is a directory without a port checkpoint (a JAX orbax "
-                "checkpoint?): reading orbax checkpoints is not yet ported "
-                "(ROADMAP Queue 1 item 11). The port reads reference-layout "
-                "torch .pth files and its own training checkpoints; export a "
-                "JAX one with the JAX package's nerf_qa_tpu/compat/"
-                "export_torch.py --kind nr")
+                f"checkpoint?): {checkpoint.ORBAX_NOT_PORTED} The port reads "
+                "reference-layout torch .pth files and its own training "
+                "checkpoints; export a JAX one with the JAX package's "
+                "nerf_qa_tpu/compat/export_torch.py --kind nr")
         path = state_file
     sd = _torch_load(path)
     if isinstance(sd, Mapping) and isinstance(sd.get("decoder"), Mapping):
         ab = sd.get("dists_alpha_beta")
         alpha_beta = None if ab is None else tuple(
             torch.as_tensor(ab[k]).reshape(-1).float().numpy() for k in ("alpha", "beta"))
-        return {k: torch.as_tensor(v).float() for k, v in sd["decoder"].items()}, alpha_beta
+        return {k: _as_float(v) for k, v in sd["decoder"].items()}, alpha_beta
     if not isinstance(sd, Mapping):
         raise ValueError(f"{path}: expected a state_dict, got {type(sd).__name__}")
     sd = sd.get("state_dict", sd)
@@ -314,6 +325,15 @@ def load_nr_torch_file(path: str):
                if k.startswith(NR_DECODER_PREFIXES)}
     if not decoder:
         raise ValueError(f"{path}: no NR decoder keys ({', '.join(NR_DECODER_PREFIXES)})")
+    batchnorm = sorted(k for k in sd if _BATCHNORM_KEY.search(k))
+    if batchnorm:
+        raise ValueError(
+            f"{path}: BatchNorm entries ({batchnorm[0]}, ... {len(batchnorm)} in "
+            "all): a reference-layout v1-v6 NR checkpoint, which neither package "
+            "reads (the JAX package's compat/torch_nr.py maps only the v7/v8 "
+            "ChannelNorm layout, norm_layer.norm.*). Nothing was loaded; train "
+            "v1-v6 with the port (tools/train_nr.py --version) and score its "
+            "checkpoint directory")
     alpha_beta = None
     for pre in ("encoder.dists.", "dists_model.", "dists."):
         if f"{pre}alpha" in sd:

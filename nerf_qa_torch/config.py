@@ -100,9 +100,7 @@ class NRModelConfig:
     ``version`` selects the architecture generation; v1-v7 differ from the
     v8 flagship only in norm type, channel schedules, residual scales and
     auxiliary heads (SURVEY §2 #9-16), so they are config points of one
-    parameterized decoder rather than copied modules. The port builds the
-    v7/v8 ChannelNorm generations; the others raise (ROADMAP Queue 1
-    item 11).
+    parameterized decoder rather than copied modules.
     """
 
     version: int = 8
@@ -132,7 +130,7 @@ class NRModelConfig:
     # execution knobs (no reference equivalent)
     decoder_dtype: str = "float32"  # 'bfloat16': bf16 decoder convs and
     # products with fp32 master weights and optimizer state (cast at use)
-    remat: bool = False  # activation checkpointing: not ported, raises
+    remat: bool = False  # activation checkpointing of the v7/v8 RefineUp stages
     dists: DISTSConfig = field(default_factory=DISTSConfig)
 
     @property

@@ -11,11 +11,12 @@ Counterpart of ``nerf_qa_tpu/data/datasets.py``:
   (data.py:190-227)
 * NeRFQAResizedDataset: paired random resize + random crop augmentation
   (data.py:285-364)
-* NerfNRQADataset in ``render`` and ``gt`` mode, which read the same
-  (data.py:431-554): the render and its ground truth, paired rotation
-  and 0.7 center crop (+ random crop when training), resized to the
-  network's two input sizes, with the per-frame DISTS std / mean
-  targets. The score-map mode (ROADMAP Queue 1 item 11) raises.
+* NerfNRQADataset (data.py:431-554): the render and its ground truth,
+  paired rotation and 0.7 center crop (+ random crop when training),
+  resized to the network's two input sizes, with the per-frame DISTS std
+  / mean targets (``render`` and ``gt`` mode, which read the same), or
+  with the prep's score map decoded to ``-log10`` values (``score-map``
+  mode).
 * Test2VideoDataset: per-video paired dict frames at 256²+224²
   (data.py:42-84)
 
@@ -216,10 +217,17 @@ class NeRFQAResizedDataset(FrameIndexed):
 
 
 class NerfNRQADataset(FrameIndexed):
-    """NR dataset, ``render`` (the default) or ``gt`` mode, which read the
-    same: (gt at render_size², {"256x256": render at render_size²,
-    "224x224": render at sem_size²}, DISTS std, DISTS mean, video index,
-    frame) per frame (data.py:431-554)."""
+    """NR dataset (data.py:431-554). ``render`` (the default) and ``gt``
+    mode read the same: (gt at render_size², {"256x256": render at
+    render_size², "224x224": render at sem_size²}, DISTS std, DISTS mean,
+    video index, frame) per frame. ``score-map`` mode gives (gt, the same
+    render dict, the score map, video index, frame): the map is the PNG
+    that ``tools/prep_nr.py --score-maps`` wrote beside the render
+    directory (``score-map/``, or ``gt-score-map/`` when the render
+    directory is not named ``color``), as float RGB in [0, 1] at its own
+    size, its channel 1 decoded to ``-log10`` ADISTS values with the
+    frame's ``score_map_log_min`` / ``score_map_log_max`` (the whole map
+    when it has one channel)."""
 
     def __init__(
         self,
@@ -233,10 +241,9 @@ class NerfNRQADataset(FrameIndexed):
         render_size: int = 256,
         sem_size: int = 224,
     ):
-        if mode not in ("render", "gt"):
-            raise NotImplementedError(
-                f"NR dataset mode {mode!r}: only 'render' and 'gt' are "
-                "ported; the score-map mode waits for ROADMAP Queue 1 item 11")
+        if mode not in ("render", "gt", "score-map"):
+            raise ValueError(f"NR dataset mode {mode!r}: 'render', 'gt' or "
+                             "'score-map'")
         self.dir = dir
         self.rows = list(rows)
         self.mode = mode
@@ -281,10 +288,26 @@ class NerfNRQADataset(FrameIndexed):
         rs, ss = self.render_size, self.sem_size
         render_pack = {"256x256": resize_image(render, rs, rs),
                        "224x224": resize_image(render, ss, ss)}
+        if self.mode == "score-map":
+            return (resize_image(gt, rs, rs), render_pack,
+                    self._score_map(row, basename, frame), video_idx, frame)
         dists_std = parse_list_column(row["DISTS_std"])[frame]
         dists_mean = parse_list_column(row["DISTS_mean"])[frame]
         return (resize_image(gt, rs, rs), render_pack, np.float32(dists_std),
                 np.float32(dists_mean), video_idx, frame)
+
+
+    def _score_map(self, row: Mapping, basename: str, frame: int) -> np.ndarray:
+        render_dir = row["render_dir"]
+        sub = "score-map" if path.basename(render_dir) == "color" else "gt-score-map"
+        score_map = load_image_rgb(path.join(self.dir, path.dirname(render_dir), sub,
+                                             basename)).copy()
+        log_min = parse_list_column(row["score_map_log_min"])[frame]
+        log_max = parse_list_column(row["score_map_log_max"])[frame]
+        if score_map.shape[-1] == 1:
+            return (log_max - log_min) * score_map + log_min
+        score_map[..., 1] = (log_max - log_min) * score_map[..., 1] + log_min
+        return score_map
 
 
 class Test2VideoDataset:

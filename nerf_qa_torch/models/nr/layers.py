@@ -12,11 +12,17 @@ load with ``strict=True``: ``conv.weight`` / ``conv.bias``,
 ``attn.qkv``, ``attn.proj``, ``ls1.gamma``, ``norm2``, ``mlp.fc1``,
 ``mlp.fc2``, ``ls2.gamma``.
 
+The v1-v6 blocks take ``norm_type="batch"``: BatchNorm then ReLU
+(model_nr.py:90-94), keyed ``norm_layer.{weight, bias, running_mean,
+running_var, num_batches_tracked}``. Its statistics follow flax's
+``nn.BatchNorm``, as the JAX package does (:class:`BatchNorm`).
+
 Layout: the conv layers take and return NCHW tensors, kept in
 ``channels_last`` memory by the decoder, so the ChannelNorm sees each map
-as contiguous NHWC rows without a copy. The BatchNorm blocks of v1-v6 and
-the sub-pixel transposed conv are not yet ported (ROADMAP Queue 1
-item 11).
+as contiguous NHWC rows without a copy. The 2x transposed convs go
+through ``ops/subpixel.conv_transpose_2x``, which picks the transposed
+conv or its sub-pixel form (:class:`SubpixelConvTranspose` is the latter
+as a module, with the transposed conv's keys).
 
 Precision (``dtype``, the JAX layers' ``dtype``): bf16 computation with
 fp32 master weights cast at use. Convolutions and Dense layers take and
@@ -37,6 +43,7 @@ from nerf_qa_torch.ops.cuda.channelnorm import (
     channel_norm_act,
     channel_norm_act_plain,
 )
+from nerf_qa_torch.ops.subpixel import conv_transpose_2x, conv_transpose_2x_subpixel
 
 
 class ChannelNorm(nn.Module):
@@ -99,16 +106,75 @@ def _linear(layer: nn.Linear, x: torch.Tensor, dtype: torch.dtype) -> torch.Tens
                     if layer.bias is not None else None)
 
 
-class ConvLayer(nn.Module):
-    """Dropout2d -> 3x3 conv -> ChannelNorm (+GELU when ``activation``)
-    (model_nr_v8.py:17-33), computed in ``dtype``."""
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over NCHW maps as flax's ``nn.BatchNorm`` computes it
+    (the JAX package's v1-v6 blocks, layers.py:119-183), not torch's
+    defaults (which the reference's ``nn.BatchNorm2d``, model_nr.py:91,
+    used):
+
+    * statistics in fp32 whatever the input's dtype, the variance as
+      E[x²] − E[x]² clipped at 0 (flax's fast variance), biased;
+    * running averages move as ``0.99·running + 0.01·batch`` (torch
+      ``momentum=0.01``), the running variance from the biased batch
+      variance; eps 1e-5;
+    * in training mode the batch statistics normalise and the running
+      averages update; in eval mode the running averages normalise.
+
+    The output is ``(x − mean)·rsqrt(var + eps)·weight + bias`` in fp32,
+    cast to ``dtype`` (flax's ``dtype``)."""
+
+    def __init__(self, features: int, dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=1e-5, momentum=0.01)
+        self.dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        if self.training:
+            mean = xf.mean(dim=(0, 2, 3))
+            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            with torch.no_grad():
+                m = 1.0 - self.momentum
+                self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
+                self.running_var.copy_(m * self.running_var + self.momentum * var)
+                self.num_batches_tracked += 1
+        else:
+            mean, var = self.running_mean, self.running_var
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        y = (xf - mean[None, :, None, None]) * mul[None, :, None, None]
+        return (y + self.bias[None, :, None, None]).to(self.dtype)
+
+
+def _norm_layer(norm_type: str, features: int, dtype: torch.dtype) -> nn.Module:
+    if norm_type == "channel":
+        return ChannelNorm(features)
+    if norm_type == "batch":
+        return BatchNorm(features, dtype)
+    raise ValueError(f"norm_type {norm_type!r}: 'channel' or 'batch'")
+
+
+class _ConvBlock(nn.Module):
+    """Dropout2d -> conv -> norm (+activation): ChannelNorm with its exact
+    GELU fused (``norm_type='channel'``, v7/v8), or BatchNorm then ReLU
+    (``'batch'``, v1-v6)."""
+
+    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+        if isinstance(self.norm_layer, ChannelNorm):
+            return self.norm_layer(x, gelu=self.activation)
+        x = self.norm_layer(x)
+        return torch.relu(x) if self.activation else x
+
+
+class ConvLayer(_ConvBlock):
+    """Dropout2d -> 3x3 conv -> norm (+activation) (model_nr_v8.py:17-33,
+    model_nr.py:90-94), computed in ``dtype``."""
 
     def __init__(self, in_chns: int, out_chns: int, activation: bool = True,
-                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "channel"):
         super().__init__()
         self.dropout = Dropout2d(dropout_rate)
         self.conv = nn.Conv2d(in_chns, out_chns, 3, padding=1)
-        self.norm_layer = ChannelNorm(out_chns)
+        self.norm_layer = _norm_layer(norm_type, out_chns, dtype)
         self.activation = activation
         self.dtype = dtype
 
@@ -117,33 +183,48 @@ class ConvLayer(nn.Module):
         x = self.dropout(x.to(self.dtype), generator)
         x = F.conv2d(x, self.conv.weight.to(self.dtype),
                      self.conv.bias.to(self.dtype), padding=1)
-        return self.norm_layer(x, gelu=self.activation)
+        return self._norm(x)
 
 
-class ConvTransposeLayer(nn.Module):
-    """Dropout2d -> exact-2x transposed conv -> ChannelNorm (+GELU)
+class ConvTransposeLayer(_ConvBlock):
+    """Dropout2d -> exact-2x transposed conv -> norm (+activation)
     (model_nr_v8.py:35-51: ConvTranspose2d(k=3, s=2, p=1,
     output_padding=1)), computed in ``dtype``. The JAX package reproduces
     this alignment with padding ((1, 2), (1, 2)) and a spatially flipped
     kernel; the weight bridge undoes the flip (compat/from_jax.py)."""
 
     def __init__(self, in_chns: int, out_chns: int, activation: bool = False,
-                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32):
+                 dropout_rate: float = 0.0, dtype: torch.dtype = torch.float32,
+                 norm_type: str = "channel"):
         super().__init__()
         self.dropout = Dropout2d(dropout_rate)
         self.conv = nn.ConvTranspose2d(in_chns, out_chns, 3, stride=2,
                                        padding=1, output_padding=1)
-        self.norm_layer = ChannelNorm(out_chns)
+        self.norm_layer = _norm_layer(norm_type, out_chns, dtype)
         self.activation = activation
         self.dtype = dtype
 
     def forward(self, x: torch.Tensor,
                 generator: torch.Generator | None = None) -> torch.Tensor:
         x = self.dropout(x.to(self.dtype), generator)
-        x = F.conv_transpose2d(x, self.conv.weight.to(self.dtype),
-                               self.conv.bias.to(self.dtype), stride=2,
-                               padding=1, output_padding=1)
-        return self.norm_layer(x, gelu=self.activation)
+        x = conv_transpose_2x(x, self.conv.weight.to(self.dtype),
+                              self.conv.bias.to(self.dtype))
+        return self._norm(x)
+
+
+class SubpixelConvTranspose(nn.ConvTranspose2d):
+    """The exact-2x transposed conv (k3, s2, p1, output_padding 1) always
+    in its sub-pixel form (``ops/subpixel.py``), with the transposed
+    conv's parameters and ``state_dict`` keys, so the two modules' weights
+    are interchangeable (the JAX package's ``SubpixelConvTranspose``,
+    layers.py:36-56)."""
+
+    def __init__(self, in_chns: int, out_chns: int):
+        super().__init__(in_chns, out_chns, 3, stride=2, padding=1,
+                         output_padding=1)
+
+    def forward(self, x: torch.Tensor, output_size=None) -> torch.Tensor:
+        return conv_transpose_2x_subpixel(x, self.weight, self.bias)
 
 
 class Mlp(nn.Module):

@@ -6,7 +6,7 @@ score every test video, write results_reeval.csv. Accepts the port's own
 checkpoints (``tools/run_fr.py``'s ``ckpt`` directory, latest step) or a
 reference torch ``model.pth``, whose
 embedded VGG stages it scores with. A JAX orbax checkpoint raises: reading
-orbax needs JAX (ROADMAP Queue 1 item 11).
+orbax needs JAX, so it is not ported (ROADMAP Queue 1, "Not to port").
 
 Usage:
   python -m nerf_qa_torch.tools.reeval --checkpoint run/ckpt \\

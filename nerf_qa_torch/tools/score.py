@@ -140,7 +140,8 @@ def load_nr_model(args) -> NRModel:
                else pretrained.resolve_dists_weights(cfg.dists, args.dists_weights))
     return NRModel(
         pretrained.resolve_vgg_params(args.vgg_ckpt), weights, cfg, vit=vit,
-        jbu=pretrained.resolve_jbu_params(args.jbu_ckpt, dim=vit.embed_dim),
+        jbu=(pretrained.resolve_jbu_params(args.jbu_ckpt, dim=vit.embed_dim)
+             if args.nr_version >= 7 else None),
         decoder=NRDecoder.from_state_dict(decoder_sd, cfg, vit.embed_dim),
         render_size=render, sem_size=sem)
 

@@ -1,21 +1,26 @@
-"""NR trainer CLI (the ``gt`` objective of train-nr.py), on the GPU.
+"""NR trainer CLI (train-nr.py), on the GPU.
 
 Counterpart of ``nerf_qa_tpu/tools/train_nr.py``. Reference behaviour:
 train-nr.py — argparse (:180-203: vit_model, refine scales, dropout, aug
 params, dists_pref2ref_coeff, ...), scene-holdout val split + method
 blacklist (:231-244), per-epoch training with loss aggregation, and a
 validation pass every ``--test-every`` epochs that scores whole videos
-(mean frame score) and correlates them with the per-frame DISTS means.
+(mean frame score) and correlates them with the per-frame DISTS means,
+and with ``--test-scores-csv`` / ``--test-data-dir`` the NeRF-QA benchmark
+pass (``eval/nr_benchmark.py``: PLCC/SRCC/KTCC against MOS and DMOS for
+syn/tnt/all, logged as ``Test Metrics Dict/{subset}/{target}/{metric}``).
 
 It takes the JAX CLI's flags plus ``--device`` (the GPU by default; it
-never carries on on the CPU unless asked). Checkpoints go to
-``<output-dir>/ckpt/step_<epoch>`` (``compat/checkpoint.py``); the final
-one scores with ``python -m nerf_qa_torch.tools.score --nr --nr-ckpt
-<output-dir>/ckpt``. ``--init-from`` takes a port checkpoint directory or
-a reference-layout NR ``.pth``, with its α/β. Not ported yet, each exiting
-with its ROADMAP item: ``--mode score-map``, ``--feature-cache``,
-``--remat``, ``--test-scores-csv`` (the NeRF-QA benchmark pass), an orbax
-``--init-from`` and ``--version`` 1-6.
+never carries on on the CPU unless asked): ``--version`` 1-8, ``--mode
+score-map`` (the score-map objective on ``tools/prep_nr.py --score-maps``
+trees), ``--remat``, and ``--feature-cache`` (ViT tokens from
+``tools/cache_nr_features.py``; it turns the random augmentations off).
+Checkpoints go to ``<output-dir>/ckpt/step_<epoch>``
+(``compat/checkpoint.py``); the final one scores with ``python -m
+nerf_qa_torch.tools.score --nr --nr-ckpt <output-dir>/ckpt
+[--nr-version N]``. ``--init-from`` takes a port checkpoint directory or a
+reference-layout v7/v8 NR ``.pth``, with its α/β; a JAX orbax directory
+exits (reading orbax needs JAX: ROADMAP Queue 1, "Not to port").
 
 Usage:
   python -m nerf_qa_torch.tools.train_nr --data-dir <NeRF-NR-QA root> \\
@@ -48,14 +53,14 @@ from nerf_qa_torch.compat.pretrained import (
 from nerf_qa_torch.config import DISTSConfig, NRModelConfig, TrainConfig, resolve_device
 from nerf_qa_torch.core.dists import weights_from_arrays
 from nerf_qa_torch.data.factories import create_nr_dataloader
+from nerf_qa_torch.data.feature_cache import TokenCacheReader
 from nerf_qa_torch.data.pipeline import device_prefetch
 from nerf_qa_torch.eval.correlations import compute_correlations
+from nerf_qa_torch.eval.nr_benchmark import benchmark_report, score_benchmark_videos
 from nerf_qa_torch.logging.metrics import MetricAggregator, jsonl_sink, log_artifact
 from nerf_qa_torch.models.nr.decoder import NRDecoder
 from nerf_qa_torch.models.nr.model import NRModel
 from nerf_qa_torch.train.nr_train import NRTrainer, scene_holdout_split
-
-_TODO = "is not yet ported (ROADMAP Queue 1 item 11)"
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -90,19 +95,29 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--scores-csv", required=True)
     p.add_argument("--mode", default="gt", choices=["gt", "score-map"],
                    help="gt: self-supervised DISTS objective (train-nr.py); "
-                        f"score-map {_TODO}")
+                        "score-map: additionally supervise the predicted "
+                        "ADISTS map against prep_nr's -log10 score maps "
+                        "(nerf_nr_qa_prep_4.py:101-135)")
     p.add_argument("--score-map-coeff", type=float, default=1.0)
     p.add_argument("--feature-cache", default=None,
-                   help=f"ViT-token cache root: {_TODO}")
+                   help="ViT-token cache root from tools/cache_nr_features: "
+                        "train/val steps skip the frozen ViT forward. Forces "
+                        "augs off (tokens are cached for the canonical "
+                        "frames); mode 'gt' only.")
     p.add_argument("--holdout-scenes", nargs="*", default=[])
     p.add_argument("--blacklist-methods", nargs="*", default=[])
     p.add_argument("--num-workers", type=int, default=4)
     p.add_argument("--output-dir", default="./nr_runs")
     p.add_argument("--test-every", type=int, default=5)
+    # NeRF-QA video-level benchmark (train-nr.py:299-375): every
+    # --test-every epochs score whole benchmark videos and report
+    # PLCC/SRCC/KTCC vs MOS and DMOS for syn/tnt/all subsets
     p.add_argument("--test-scores-csv", default=None,
-                   help=f"NeRF-QA benchmark CSV: the benchmark pass {_TODO}")
+                   help="NeRF-QA benchmark CSV (reference_filename, "
+                        "distorted_filename, MOS, DMOS[, DISTS])")
     p.add_argument("--test-data-dir", default=None,
-                   help="benchmark video root (with --test-scores-csv)")
+                   help="benchmark video root: frame directories named after "
+                        "each video")
     p.add_argument("--test-max-frames", type=int, default=None)
     p.add_argument("--checkpoint-every", type=int, default=0)
     p.add_argument("--resume", action="store_true")
@@ -117,7 +132,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="decoder conv/attention compute dtype (params and "
                         "optimizer state stay fp32)")
     p.add_argument("--remat", action="store_true",
-                   help=f"activation checkpointing {_TODO}")
+                   help="checkpoint each v7/v8 RefineUp stage (activation "
+                        "memory -> larger batches)")
     p.add_argument("--render-size", type=int, default=256,
                    help="DISTS input side; must satisfy "
                         "render_size/16 == sem_size/14")
@@ -129,26 +145,14 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    unported = {
-        "--mode score-map": args.mode == "score-map",
-        "--feature-cache": args.feature_cache is not None,
-        "--remat": args.remat,
-        "--test-scores-csv": args.test_scores_csv is not None,
-        f"--version {args.version} (only v7/v8)": args.version <= 6,
-    }
-    for flag, asked in unported.items():
-        if asked:
-            raise SystemExit(f"{flag} {_TODO}")
-
-
 def read_rows(path: str) -> list[dict]:
     """The scores CSV as a list of dicts (string values)."""
     with open(path, newline="") as f:
         return list(csv.DictReader(f))
 
 
-def _validate(trainer: NRTrainer, rows, args, agg: MetricAggregator, epoch: int):
+def _validate(trainer: NRTrainer, rows, args, agg: MetricAggregator, epoch: int,
+              tokens: TokenCacheReader | None = None):
     """Video-level scores (mean frame score) against the per-frame DISTS
     means (train-nr.py:299-315)."""
     loader = create_nr_dataloader(
@@ -157,8 +161,9 @@ def _validate(trainer: NRTrainer, rows, args, agg: MetricAggregator, epoch: int)
         render_size=args.render_size, sem_size=args.sem_size)
     preds, targets = {}, {}
     for batch in loader:
-        _, render, _, dists_mean, vid = batch[:5]
-        scores = trainer.score_frames(render["256x256"], render["224x224"])
+        _, render, _, dists_mean, vid, frame = batch[:6]
+        toks = None if tokens is None else tokens.gather(vid, frame)
+        scores = trainer.score_frames(render["256x256"], render["224x224"], toks)
         for v, s, t in zip(np.asarray(vid), scores, np.asarray(dists_mean)):
             preds.setdefault(int(v), []).append(float(s))
             targets.setdefault(int(v), []).append(float(t))
@@ -170,9 +175,53 @@ def _validate(trainer: NRTrainer, rows, args, agg: MetricAggregator, epoch: int)
     print("val:", agg.log_summary(epoch))
 
 
+def _benchmark(trainer: NRTrainer, args, sink, epoch: int) -> None:
+    """The NeRF-QA benchmark pass (train-nr.py:299-375)."""
+    rows = read_rows(args.test_scores_csv)
+    scores = score_benchmark_videos(
+        lambda a, b: trainer.score_video(a, b, args.batch_size), rows,
+        args.test_data_dir, args.test_max_frames, args.render_size, args.sem_size)
+    report = benchmark_report(rows, scores)
+    sink({f"Test Metrics Dict/{k}": v for k, v in report.items()}, epoch)
+    print("test:", {k: round(v, 4) for k, v in report.items()})
+
+
+def _token_readers(args, train_rows, val_rows):
+    """The token caches of the train and validation rows (None without
+    ``--feature-cache``); turns the random augmentations off."""
+    if not args.feature_cache:
+        return None, None
+    if args.mode != "gt":
+        raise SystemExit("--feature-cache requires --mode gt")
+    if args.aug_rot_deg or args.aug_crop_scale != 1.0:
+        print("feature cache: disabling random augs (tokens are cached for "
+              "the canonical frames)")
+        args.aug_rot_deg, args.aug_crop_scale = 0.0, 1.0
+    train_tokens = TokenCacheReader(args.feature_cache, train_rows)
+    got, total = train_tokens.coverage()
+    if got < total:
+        raise SystemExit(f"feature cache incomplete: {got}/{total} train videos "
+                         "cached — run tools/cache_nr_features first")
+    return train_tokens, TokenCacheReader(args.feature_cache, val_rows) if val_rows else None
+
+
+def _train_batch(trainer: NRTrainer, batch, mode: str,
+                 tokens: TokenCacheReader | None) -> dict:
+    """One step on a loader batch: (gt, render, score_map, vid, frame) in
+    score-map mode, (gt, render, std, mean, vid, frame) otherwise."""
+    gt, render = batch[0], batch[1]
+    if mode == "score-map":
+        return trainer.train_step_score_map(gt, render["256x256"], render["224x224"],
+                                            batch[2])
+    toks = None
+    if tokens is not None:
+        toks = tokens.gather(batch[4].cpu().numpy(), batch[5].cpu().numpy())
+    return trainer.train_step(gt, render["256x256"], render["224x224"], batch[2],
+                              batch[3], sem_tokens=toks)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     device = resolve_device(args.device)
     os.makedirs(args.output_dir, exist_ok=True)
     sink = jsonl_sink(os.path.join(args.output_dir, "metrics.jsonl"))
@@ -185,6 +234,7 @@ def main(argv=None) -> int:
     train_rows = [r for r, m in zip(rows, train_mask) if m]
     val_rows = [r for r, m in zip(rows, val_mask) if m]
     print(f"train videos: {len(train_rows)}  val videos: {len(val_rows)}")
+    train_tokens, val_tokens = _token_readers(args, train_rows, val_rows)
 
     cfg = NRModelConfig(
         version=args.version,
@@ -199,6 +249,7 @@ def main(argv=None) -> int:
         dists_pref2ref_coeff=args.dists_pref2ref_coeff,
         score_map_coeff=args.score_map_coeff,
         decoder_dtype=args.decoder_dtype,
+        remat=args.remat,
         dists=DISTSConfig(compute_dtype=args.compute_dtype),
     )
     vit = resolve_vit_params(args.vit_ckpt, depth=args.vit_depth,
@@ -206,7 +257,8 @@ def main(argv=None) -> int:
     model = NRModel(
         resolve_vgg_params(args.vgg_ckpt, seed=args.seed),
         resolve_dists_weights(cfg.dists, args.dists_weights), cfg, vit=vit,
-        jbu=resolve_jbu_params(args.jbu_ckpt, dim=vit.embed_dim),
+        jbu=(resolve_jbu_params(args.jbu_ckpt, dim=vit.embed_dim)
+             if args.version >= 7 else None),
         render_size=args.render_size, sem_size=args.sem_size)
     train_cfg = TrainConfig(
         lr=args.lr, beta1=args.beta1, beta2=args.beta2, eps=args.eps,
@@ -256,10 +308,9 @@ def main(argv=None) -> int:
         # double-buffered H2D: pinned copies on a side stream, a batch
         # ahead of the step that reads it
         for batch in device_prefetch(loader, device=device):
-            gt, render = batch[0], batch[1]
-            losses = trainer.train_step(gt, render["256x256"], render["224x224"])
+            losses = _train_batch(trainer, batch, args.mode, train_tokens)
             agg.add({k: float(v) for k, v in losses.items()})
-            frames += gt.shape[0]
+            frames += batch[0].shape[0]
         logs = agg.log_summary(epoch)
         rate = frames / max(time.perf_counter() - t0, 1e-9)
         print(f"epoch {epoch}: {logs}  ({rate:.1f} fr/s on {device})")
@@ -268,7 +319,10 @@ def main(argv=None) -> int:
             save_checkpoint(ckpt_dir, epoch + 1, state)
         saver.maybe_save(epoch + 1, state)
         if val_rows and (epoch + 1) % args.test_every == 0:
-            _validate(trainer, val_rows, args, val_agg, epoch)
+            _validate(trainer, val_rows, args, val_agg, epoch, val_tokens)
+        if (args.test_scores_csv and args.test_data_dir
+                and (epoch + 1) % args.test_every == 0):
+            _benchmark(trainer, args, sink, epoch)
 
     final_path = save_checkpoint(ckpt_dir, args.epochs,
                                  dict(trainer.state_dict(), epoch=args.epochs))

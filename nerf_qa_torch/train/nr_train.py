@@ -12,9 +12,14 @@ the same update as optax's ``adam`` — bias-corrected moments, eps outside
 the square root), the learning-rate schedule written into the optimizer
 before each step (optax evaluates it at the update count), and the
 dropout generator, an explicit ``torch.Generator`` on the trainer's
-device. It runs on the card unless the caller asks for another device; on
-the card the decoder's ChannelNorms launch the forward and backward
-kernels and the JBU stack its kernel.
+device. The v1-v6 decoders' BatchNorm running averages are buffers of the
+decoder (the JAX trainer's ``state``): they update in each training step
+and travel in the decoder's ``state_dict``. Steps take the ``gt``
+objective (with the per-frame DISTS std / mean targets of v6), the
+score-map objective (``train_step_score_map``), or cached ViT tokens in
+place of the ViT (``sem_tokens``). It runs on the card unless the caller
+asks for another device; on the card the decoder's ChannelNorms launch the
+forward and backward kernels and the JBU stack its kernel.
 """
 from __future__ import annotations
 
@@ -88,24 +93,42 @@ class NRTrainer:
     def _to_device(self, a) -> torch.Tensor:
         return torch.as_tensor(a).to(self.device, torch.float32, non_blocking=True)
 
-    def train_step(self, gt, render_256, render_224) -> dict[str, torch.Tensor]:
-        """One Adam step on the decoder from a batch of NHWC images in
-        [0, 1] (numpy or tensors); returns the detached losses. The
-        backward and the update run in the profiler ranges ``nr.backward``
-        and ``nr.optimizer``, after ``losses``' own."""
+    def _step(self, gt, render_256, render_224, **kw) -> dict[str, torch.Tensor]:
         gt, r256, r224 = (self._to_device(a) for a in (gt, render_256, render_224))
+        kw = {k: None if v is None else self._to_device(v) for k, v in kw.items()}
         self.model.decoder.train()
         for group in self.optimizer.param_groups:
             group["lr"] = self.schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         with self.model.train_precision():
-            losses = self.model.losses(gt, r256, r224, generator=self.generator)
+            losses = self.model.losses(gt, r256, r224, generator=self.generator, **kw)
             with record_function("nr.backward"):
                 losses["combined"].backward()
         with record_function("nr.optimizer"):
             self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
+
+    def train_step(self, gt, render_256, render_224, score_std=None, score_mean=None,
+                   sem_tokens=None) -> dict[str, torch.Tensor]:
+        """One Adam step on the decoder from a batch of NHWC images in
+        [0, 1] (numpy or tensors); returns the detached losses. ``score_std``
+        / ``score_mean``: the per-frame DISTS targets of v6's calibration
+        head (zeros when not given, as the JAX trainer passes);
+        ``sem_tokens``: cached ViT tokens in place of the ViT. The backward
+        and the update run in the profiler ranges ``nr.backward`` and
+        ``nr.optimizer``, after ``losses``' own."""
+        if score_std is None:
+            score_std = score_mean = torch.zeros((np.shape(gt)[0],), device=self.device)
+        return self._step(gt, render_256, render_224, score_std=score_std,
+                          score_mean=score_mean, sem_tokens=sem_tokens)
+
+    def train_step_score_map(self, gt, render_256, render_224,
+                             score_map) -> dict[str, torch.Tensor]:
+        """One Adam step of the score-map objective (mode 'score-map'
+        batches: the decoded ``-log10`` ADISTS map beside the images;
+        nr_train.py:120-165)."""
+        return self._step(gt, render_256, render_224, score_map=score_map)
 
     def train_epoch(self, batches: Iterable,
                     aggregator: MetricAggregator | None = None) -> None:
@@ -116,12 +139,14 @@ class NRTrainer:
             if aggregator is not None:
                 aggregator.add({k: float(v) for k, v in losses.items()})
 
-    def score_frames(self, render_256, render_224) -> np.ndarray:
-        """Per-frame NR scores of one batch, decoder in eval mode."""
+    def score_frames(self, render_256, render_224, sem_tokens=None) -> np.ndarray:
+        """Per-frame NR scores of one batch, decoder in eval mode (the v1-v6
+        BatchNorms on their running averages)."""
         self.model.decoder.eval()
         with torch.no_grad():
-            return self.model(self._to_device(render_256),
-                              self._to_device(render_224)).cpu().numpy()
+            toks = None if sem_tokens is None else self._to_device(sem_tokens)
+            return self.model(self._to_device(render_256), self._to_device(render_224),
+                              toks).cpu().numpy()
 
     def score_video(self, render_256, render_224, batch_size: int = 4) -> float:
         """Mean frame score over a video (train-nr.py:305-315), in
@@ -139,8 +164,9 @@ class NRTrainer:
         return float(np.concatenate(scores).mean())
 
     def state_dict(self) -> dict:
-        """The resumable state: the decoder (reference key layout), the
-        optimizer, the step, the dropout generator and the DISTS α/β."""
+        """The resumable state: the decoder (reference key layout, the
+        BatchNorm running averages included), the optimizer, the step, the
+        dropout generator and the DISTS α/β."""
         return {"decoder": self.model.decoder.state_dict(),
                 "optimizer": self.optimizer.state_dict(),
                 "step": self.step,

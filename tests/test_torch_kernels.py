@@ -285,6 +285,52 @@ def test_channelnorm_module_launches_both_kernels_under_grad(dtype):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_channelnorm_kernels_under_remat(dtype):
+    # a v7/v8 decoder with remat on the card (a small one: decoder depths
+    # 1 / 2, 16² top grid): each checkpointed RefineUp stage recomputes its
+    # ChannelNorm forwards in the backward (17 of the 18, trans2sem's sits
+    # outside), the backward launches stay 18, and the losses' decoder
+    # gradient equals the plain step's (atol 1e-6 of the largest |grad|:
+    # the same arithmetic, cuDNN's backward may sum in another order)
+    from nerf_qa_torch.config import NRModelConfig
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+
+    cfg = NRModelConfig(transformer_decoder_depth=1, decoder_dtype=dtype, dropout_rate=0.2)
+    dec = init_lecun_normal_(NRDecoder(cfg), torch.Generator().manual_seed(0)).cuda().train()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    chns = (3, 64, 128, 256, 512, 512)
+    sizes = (128, 128, 64, 32, 16, 8)
+    feats = [torch.rand((2, s, s, c), generator=g, device="cuda") for s, c in zip(sizes, chns)]
+    sem = torch.rand((2, 8, 8, 384), generator=g, device="cuda")
+    pyramid = [torch.rand((2, s, s, 384), generator=g, device="cuda")
+               for s in (8, 16, 32, 64, 128, 128)]
+    drop = torch.Generator(device="cuda").manual_seed(2)
+    state = drop.get_state()
+    out = {}
+    for remat in (False, True):
+        dec.cfg = cfg.replace(remat=remat)
+        dec.zero_grad(set_to_none=True)
+        drop.set_state(state)
+        before = (channelnorm.launches, channelnorm.bwd_launches)
+        pred, _ = dec(feats, sem, pyramid, drop)
+        loss = sum(p.float().square().mean() for p in pred)
+        loss.backward()
+        torch.cuda.synchronize()
+        out[remat] = ((channelnorm.launches - before[0], channelnorm.bwd_launches - before[1]),
+                      float(loss), {n: p.grad.clone() for n, p in dec.named_parameters()
+                                    if p.grad is not None}, drop.get_state())
+    assert out[False][0] == (18, 18)
+    assert out[True][0] == (35, 18)
+    assert out[True][1] == pytest.approx(out[False][1], rel=1e-6)
+    assert torch.equal(out[True][3], out[False][3])
+    top = max(float(t.abs().max()) for t in out[False][2].values())
+    assert out[True][2].keys() == out[False][2].keys()
+    for n, t in out[False][2].items():
+        assert float((out[True][2][n] - t).abs().max()) <= 1e-6 * top, n
+
+
 def _jbu_inputs(shape, dtype, seed=0):
     n, h, w, c = shape
     g = torch.Generator(device="cuda").manual_seed(seed)

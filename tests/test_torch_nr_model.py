@@ -12,6 +12,7 @@ from nerf_qa_torch.config import DISTSConfig as TDConfig
 from nerf_qa_torch.config import NRModelConfig as TConfig
 from nerf_qa_torch.models.nr.decoder import NRDecoder
 from nerf_qa_torch.models.nr.model import NRModel
+from nerf_qa_torch.models.nr.vit import ViTS14
 from nerf_qa_torch.ops.cuda import jbu as tjbu
 from nerf_qa_tpu.config import DISTSConfig as JDConfig
 from nerf_qa_tpu.config import NRModelConfig as JConfig
@@ -172,11 +173,29 @@ def test_cpu_path_takes_plain_jbu(port_nr, renders):
 
 
 @pytest.mark.parametrize("version", [1, 3, 6])
-def test_unported_versions_raise(version, torch_model):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NRDecoder(TConfig(version=version))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NRModel(torch_model, cfg=TConfig(version=version))
+def test_unported_versions_raise(version, torch_model, renders):
+    # v1, v3 and v6 raised until the BatchNorm generations were ported:
+    # now each builds with its own modules, and its model (no JBU pyramid)
+    # scores and trains on the CPU. Parity with JAX for every generation:
+    # tests/test_torch_nr_versions_v1_v3.py and _v4_v8.py
+    cfg = TConfig(version=version, transformer_decoder_depth=1, refine_up_depth=1)
+    decoder = NRDecoder(cfg)
+    keys = decoder.state_dict().keys()
+    assert any(k.endswith("norm_layer.running_mean") for k in keys)
+    assert (version == 3) == any(k.startswith("refine_down.") for k in keys)
+    assert (version in (3, 6)) == any(k.startswith("score_reg.") for k in keys)
+    vit = ViTS14(depth=1, grid_size=NR_SEM // 14)
+    model = NRModel(torch_model, cfg=cfg, vit=vit, render_size=NR_RENDER, sem_size=NR_SEM)
+    assert model.jbu is None and not model.use_jbu
+    r256, r224 = (torch.from_numpy(a) for a in renders)
+    with torch.no_grad():
+        score, normalized = model.forward_normalized(r256, r224)
+    assert score.shape == (2,) and torch.isfinite(score).all()
+    assert torch.equal(score, normalized) == (version != 6)
+    model.decoder.train()
+    losses = model.losses(r256, r256.flip(1), r224, torch.Generator().manual_seed(0))
+    losses["combined"].backward()
+    assert torch.isfinite(losses["combined"])
 
 
 def test_decoder_state_dict_matches_export_layout(jax_nr):

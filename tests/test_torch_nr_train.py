@@ -328,7 +328,7 @@ def test_bf16_combined_gradient_matches_jax(bf16_case, fp32_case):
           f"{worst} {ratios[worst]:.2f}x")
 
 
-# -- dropout, training, what is not ported -------------------------------------
+# -- dropout, training, remat and the score map ----------------------------------
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_dropout2d_drops_whole_channels_and_repeats(dtype):
@@ -391,13 +391,19 @@ def test_trainer_needs_a_gpu_unless_asked(port_base, monkeypatch):
 
 
 def test_unported_training_options_raise(port_base, batch):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        NRDecoder(nr_config(TConfig).replace(remat=True))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port_base.losses(*(torch.from_numpy(a) for a in batch),
-                         score_map=torch.zeros(2, NR_RENDER, NR_RENDER))
+    # remat and the score-map objective raised until they were ported: a
+    # remat decoder builds from the same weights, the score-map loss runs
+    # (its parity: tests/test_torch_nr_remat.py and
+    # tests/test_torch_nr_scoremap.py), and the v7/v8 normalized score is
+    # still the score
+    remat = NRDecoder.from_state_dict(port_base.decoder.state_dict(),
+                                      nr_config(TConfig).replace(remat=True))
+    assert remat.cfg.remat
+    losses = port_base.losses(*(torch.from_numpy(a) for a in batch),
+                              score_map=torch.ones(1, NR_RENDER, NR_RENDER))
+    assert {"score_map_l1", "combined"} <= set(losses)
+    assert torch.isfinite(losses["score_map_l1"]) and float(losses["score_map_l1"]) > 0
     with torch.no_grad():
         score, normalized = port_base.forward_normalized(
             torch.from_numpy(batch[1]), torch.from_numpy(batch[2]))
     assert torch.equal(score, normalized) and score.shape == (1,)
-

@@ -4,8 +4,10 @@ loader, the Adam update and its state bridge, the schedules and the
 holdout split; then the port's training CLI on a synthetic tree at 32² /
 28² (a 1-block ViT, decoder depths 0 / 1): it trains, checkpoints,
 resumes bit for bit, starts from a checkpoint or a .pth, and its
-checkpoint scores through ``tools/score.py --nr``. Unported options exit
-naming their ROADMAP item."""
+checkpoint scores through ``tools/score.py --nr``; and each option that
+once exited as unported runs (the score-map objective, the token cache,
+remat, the NeRF-QA benchmark pass, v6), while an orbax ``--init-from``
+exits naming the ROADMAP's "Not to port" note."""
 import json
 import os
 import shutil
@@ -56,9 +58,24 @@ ARCH = ["--vit-depth", "1", "--refine-up-depth", "1",
 
 @pytest.fixture(scope="module")
 def nr_tree(tmp_path_factory):
+    """The synthetic NR tree with score-map PNGs (L mode, as prep_nr writes
+    them) and their log-range columns, written from a seed."""
+    from PIL import Image
+
     root = str(tmp_path_factory.mktemp("nr"))
     csv = tsynth.make_nr_tree(root, scenes=("chair", "drums"), methods=("nerfacto",),
                               frames=2, hw=(48, 48))
+    rows = ttrain_cli.read_rows(csv)
+    rng = np.random.default_rng(9)
+    for row in rows:
+        out = os.path.join(root, os.path.dirname(row["render_dir"]), "score-map")
+        os.makedirs(out)
+        for name in tdatasets.parse_list_column(row["basenames"]):
+            Image.fromarray((rng.random((40, 40)) * 255).astype(np.uint8), "L").save(
+                os.path.join(out, name))
+        row["score_map_log_min"] = str([round(float(v), 6) for v in 1 + rng.random(2)])
+        row["score_map_log_max"] = str([round(float(v), 6) for v in 2.5 + rng.random(2)])
+    pd.DataFrame(rows).to_csv(csv, index=False)
     return root, csv
 
 
@@ -109,19 +126,22 @@ def test_scene_balanced_sampler_matches_jax():
 
 
 @pytest.mark.parametrize("is_train,mode", [
-    (False, "gt"), (True, "gt"), (False, "render"), (True, "render")],
-    ids=["False", "True", "False-render", "True-render"])
+    (False, "gt"), (True, "gt"), (False, "render"), (True, "render"),
+    (False, "score-map"), (True, "score-map")],
+    ids=["False", "True", "False-render", "True-render", "False-score-map",
+         "True-score-map"])
 def test_nr_dataset_matches_jax(nr_tree, is_train, mode):
     # the same frames, rotation, crops and resizes from the same seed, in
     # the same order: equal arrays ('render', the JAX class's default,
-    # reads as 'gt')
+    # reads as 'gt'; 'score-map' gives the decoded map in place of the
+    # DISTS targets)
     j, t = _both_datasets(nr_tree, is_train, mode=mode)
     assert len(t) == len(j) == 4
     assert t.get_scene_indices() == j.get_scene_indices()
     for idx in (0, 3, 1, 2, 0):
-        _assert_items_equal(t[idx], j[idx])
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdatasets.NerfNRQADataset(t.rows, t.dir, mode="score-map")
+        item = t[idx]
+        assert len(item) == (5 if mode == "score-map" else 6)
+        _assert_items_equal(item, j[idx])
 
 
 def test_nr_loader_matches_jax_and_prefetches(nr_tree):
@@ -348,13 +368,53 @@ def test_cli_checkpoint_scores_with_score_nr(nr_tree, two_epochs, tmp_path,
     ["--test-scores-csv", "test.csv"], ["--version", "6"], ["--init-from", "orbax"],
 ])
 def test_cli_unported_flags_exit_naming_roadmap(nr_tree, tmp_path, flags):
+    # five of these options exited as unported until they were ported: each
+    # now trains an epoch and shows its effect. An orbax checkpoint still
+    # exits: reading one needs JAX (ROADMAP Queue 1, "Not to port")
     root, csv = nr_tree
+    out = str(tmp_path / "out")
+    argv = ["--data-dir", root, "--scores-csv", csv, "--output-dir", out, "--epochs", "1",
+            *ARCH]
     if flags[-1] == "orbax":  # an orbax checkpoint is a directory of other files
         (tmp_path / "orbax" / "step_00000001").mkdir(parents=True)
-        flags = ["--init-from", str(tmp_path / "orbax")]
-    with pytest.raises(SystemExit, match="ROADMAP Queue 1 item 11"):
-        ttrain_cli.main(["--data-dir", root, "--scores-csv", csv, "--output-dir",
-                         str(tmp_path / "out"), "--epochs", "0", *ARCH, *flags])
+        with pytest.raises(SystemExit, match="Not to port"):
+            ttrain_cli.main(argv + ["--init-from", str(tmp_path / "orbax")])
+        return
+    if flags[0] == "--feature-cache":
+        from nerf_qa_torch.tools import cache_nr_features
+
+        flags = ["--feature-cache", str(tmp_path / "cache")]
+        assert cache_nr_features.main(["--data-dir", root, "--scores-csv", csv,
+                                       "--cache-dir", flags[1], "--vit-depth", "1",
+                                       "--sem-size", str(SEM), "--num-workers", "0",
+                                       "--device", "cpu"]) == 0
+    if flags[0] == "--test-scores-csv":
+        bench = tmp_path / "bench"
+        with open(bench.with_suffix(".csv"), "w") as f:
+            f.write("reference_filename,distorted_filename,MOS,DMOS\n")
+            for i, (scene, ref) in enumerate((("chair", "lego"), ("drums", "ship"),
+                                              ("chair", "truck"))):
+                shutil.copytree(os.path.join(root, scene, "nerfacto", "color"),
+                                bench / f"v{i}")
+                f.write(f"{ref}_reference.mp4,v{i}.mp4,{1 + i},{5 - 0.5 * i}\n")
+        flags = ["--test-scores-csv", str(bench.with_suffix(".csv")), "--test-data-dir",
+                 str(bench), "--test-every", "1"]
+    assert ttrain_cli.main(argv + flags) == 0
+    with open(os.path.join(out, "metrics.jsonl")) as f:
+        logs = [json.loads(line) for line in f]
+    keys = set().union(*logs)
+    _, state = restore_checkpoint(os.path.join(out, "ckpt"))
+    assert np.isfinite(logs[0]["Train Metrics Dict/combined"])
+    if flags[0] == "--mode":
+        assert "Train Metrics Dict/score_map_l1" in keys
+    elif flags[0] == "--test-scores-csv":
+        assert {"Test Metrics Dict/mos/plcc", "Test Metrics Dict/dmos/srcc"} <= keys
+    elif flags[0] == "--version":
+        assert "Train Metrics Dict/dists_std_l1" in keys
+        assert any(k.endswith("running_var") for k in state["decoder"])
+    else:  # --feature-cache, --remat: the gt objective's losses
+        assert "Train Metrics Dict/dists_pref2ref" in keys
+    shutil.rmtree(out)  # a checkpoint with Adam's state is ~0.5 GB
 
 
 def test_cli_needs_a_gpu_unless_asked(nr_tree, tmp_path, monkeypatch):

@@ -209,8 +209,11 @@ def test_score_cli_image_pair_default_path_and_csv(pair_dirs, tmp_path, capsys):
                                    ["--nr", "--nr-ckpt", "."],  # an orbax dir
                                    ["--dist", "clip.mp4"]])
 def test_score_cli_unported_modes_exit(pair_dirs, extra):
+    # an orbax checkpoint is not ported at all (it needs JAX: ROADMAP's
+    # "Not to port"); mp4 input is not yet ported
     ref_dir, dist_dir, _ = pair_dirs
-    with pytest.raises(SystemExit, match="not yet ported"):
+    match = "Not to port" if "--nr" in extra else "not yet ported"
+    with pytest.raises(SystemExit, match=match):
         tscore_main(["--ref", ref_dir, "--dist", dist_dir, "--device", "cpu",
                      *extra])
 
