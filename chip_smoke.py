@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
 ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives six paths at full width and
+plain PyTorch version on the card. It drives seven paths at full width and
 checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
@@ -51,7 +51,23 @@ checks that each went through its kernels:
   with the square and full-size policies, whose ADISTS column takes the
   windowed T/S kernel, ``reeval`` of the trained checkpoint); and the FR
   quality certificate (``quality_demo --kind fr``, seeds 0-2, held to
-  cv_plcc >= 0.90, cv_srcc >= 0.80, cv_ktcc >= 0.60).
+  cv_plcc >= 0.90, cv_srcc >= 0.80, cv_ktcc >= 0.60);
+* the data feed and the scoring service: the native decoder built with
+  g++ (or the reason it cannot be, and then the PIL route), held to PIL
+  where it builds, with the host's 1080p JPEG -> 256² decode rate by
+  thread count (``native_decoder``); 1080p MJPEG mp4 pairs through
+  ``score.main`` against the same JPEGs as frame directories
+  (``mp4_path``, where the decoder builds); the service
+  (``tools.serve.ScoringService`` behind its HTTP server, batch 32, bf16,
+  NR v8 at full width from a seeded ``.pth``) under 8 clients with four
+  12-frame 1080p FR and NR requests each in flight, every stepped batch
+  replayed through the scorers called directly and every response found
+  among their outputs, the moments, T/S, JBU and ChannelNorm
+  kernels' launches against the steps, coalescing, latency, the idle
+  share and the host decode share (``serve_path``), a ``--full-size``
+  1080p request cold and warm (``serve_full_size``), the service's CLI
+  in a subprocess on its default device (``serve_cli``), and the feed
+  benchmark's sustained rates beside the device's (``feed``).
 
 It checks and times each kernel at its paths' shapes against its plain
 version, with its bound and a PyTorch yardstick (the ChannelNorm
@@ -2772,6 +2788,511 @@ def fr_quality() -> None:
           results=results)
 
 
+# The data feed and the scoring service. The native decoder's
+# parity bars are those of the JAX package's tests/test_native_decoder.py.
+NATIVE_TOL = {"png": 1e-6, "resize": 1e-5, "jpeg": 2.5 / 255, "rgba": 1 / 255 + 1e-6}
+DECODE_FIXTURES = 16  # distinct 1080p JPEGs of the decode rates
+SERVE_BATCH = 32
+SERVE_CLIENTS = 8
+SERVE_FRAMES = 12  # frames of a request's 1080p video
+# a client's requests, all in flight at once: three FR pairs, one NR render
+SERVE_PLAN = ("fr", "fr", "fr", "nr")
+SERVE_DIRECT_ATOL = 1e-5  # responses against the scorers called directly
+FULL_SIZE_FRAMES = 2
+FEED_MODES = ("dists_jpeg", "dists_uint8_cache", "nr_full")
+FEED_FRAMES = 256
+
+
+def video_u8(rng, n: int, hw=FRAME_HW, base_shift: float = 0.0) -> np.ndarray:
+    """n seeded uint8 frames: a smooth gradient plus noise texture (JPEG
+    entropy like rendered content), drifting across the frames."""
+    h, w = hw
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    base = np.stack([yy / h, xx / w, (yy + xx) / (h + w)], axis=-1) * 0.7
+    out = np.empty((n, h, w, 3), np.uint8)
+    for i in range(n):
+        noise = rng.integers(-20, 21, (h, w, 3), dtype=np.int16)
+        img = (base + base_shift + 0.01 * i) * 255 + noise
+        out[i] = np.clip(img, 0, 255).astype(np.uint8)
+    return out
+
+
+def write_video(root: Path, name: str, frames: np.ndarray, as_mp4: bool) -> str:
+    """A Motion-JPEG mp4 (the port's writer), or a directory of the same
+    JPEGs (PIL at the writer's quality)."""
+    from PIL import Image
+
+    from nerf_qa_torch.data.video import write_mjpeg_mp4
+
+    root.mkdir(parents=True, exist_ok=True)
+    if as_mp4:
+        path = root / f"{name}.mp4"
+        write_mjpeg_mp4(str(path), frames)
+        return str(path)
+    path = root / name
+    path.mkdir(parents=True)
+    for i, f in enumerate(frames):
+        Image.fromarray(f).save(path / f"{i:03d}.jpg", quality=90)
+    return str(path)
+
+
+def native_decoder() -> bool:
+    """Phase native_decoder: build the port's native decoder with g++, hold
+    it to the PIL route on this host (where it builds), and time 1080p
+    JPEG -> 256² decodes at 1, 2, 4, 8 threads and nproc through the route
+    the loaders take here (bench_host_decode). Returns whether it built."""
+    from PIL import Image
+
+    from nerf_qa_torch.data import imaging, native
+    from nerf_qa_torch.tools import bench_host_decode as bhd
+
+    t0 = time.perf_counter()
+    built = native.available()
+    fields = {"built": built, "build_seconds": time.perf_counter() - t0,
+              "nproc": os.cpu_count()}
+    rng = np.random.default_rng(0)
+    with tempfile.TemporaryDirectory() as tmp:
+        if built:
+            errs = {}
+            png, jpg, rgba = (f"{tmp}/a.png", f"{tmp}/a.jpg", f"{tmp}/rgba.png")
+            Image.fromarray(rng.integers(0, 256, (48, 64, 3), dtype=np.uint8)).save(png)
+            Image.fromarray(rng.integers(0, 256, (40, 56, 3), dtype=np.uint8)).save(
+                jpg, quality=95)
+            arr = np.zeros((8, 8, 4), np.uint8)
+            arr[..., 0], arr[..., 3] = 200, 128
+            Image.fromarray(arr, "RGBA").save(rgba)
+            for key, got, want in (
+                    ("png", native.decode_resize(png, 48, 64), imaging.load_image_rgb(png)),
+                    ("resize", native.decode_resize(png, 32, 32),
+                     imaging.resize_image(imaging.load_image_rgb(png), 32, 32)),
+                    ("jpeg", native.decode_resize(jpg, 40, 56), imaging.load_image_rgb(jpg)),
+                    ("rgba", native.decode_resize(rgba, 8, 8), imaging.load_image_rgb(rgba))):
+                errs[key] = float(np.abs(got - want).max())
+                if errs[key] > NATIVE_TOL[key]:
+                    raise AssertionError(f"native decoder {key}: {errs[key]} > "
+                                         f"{NATIVE_TOL[key]}")
+            fields["max_abs_err_vs_pil"] = errs
+        else:
+            fields["reason"] = (native.unavailable_reason() or "")[-800:]
+        paths = bhd.make_fixtures(tmp, DECODE_FIXTURES)
+        threads = sorted({1, 2, 4, 8, os.cpu_count() or 1})
+        fields["decoder"] = "native" if built else "pil"
+        fields["fps_1080p_jpeg_to_256"] = {
+            t: bhd.bench_decode(paths, t, reps=2) for t in threads}
+        if built:
+            fields["fps_1080p_jpeg_to_256_fast"] = {
+                t: bhd.bench_decode(paths, t, reps=2, fast=True) for t in threads}
+    phase("native_decoder", **fields)
+    return built
+
+
+def mp4_path(built: bool) -> None:
+    """Phase mp4_path: 1080p MJPEG mp4 pairs (24 frames, seeded) written by
+    the port, scored by ``score.main(--metric both)``, against the same
+    JPEG samples as frame directories (bit-equal: one decoder, one shape),
+    with the moments and T/S kernels launched and no PIL fallback. Runs
+    only where the native decoder builds."""
+    import io
+
+    from nerf_qa_torch.data import imaging, native
+    from nerf_qa_torch.tools import score
+
+    if not built:
+        phase("mp4_path", ran=False,
+              reason=f"native decoder not built: {native.unavailable_reason()}"[:800])
+        return
+    rng = np.random.default_rng(9)
+    ref = video_u8(rng, 24)
+    dist = np.clip(ref.astype(np.int16) + rng.integers(-12, 13, ref.shape), 0,
+                   255).astype(np.uint8)
+    fallbacks = imaging.pil_fallbacks
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        inputs = {as_mp4: [write_video(root / str(as_mp4), n, f, as_mp4)
+                           for n, f in (("ref", ref), ("dist", dist))]
+                  for as_mp4 in (True, False)}
+        results, csvs, counts = {}, {}, {}
+        for as_mp4, (r, d) in inputs.items():
+            csv = root / f"scores_{as_mp4}.csv"
+            reset_launches()
+            out = io.StringIO()
+            with contextlib.redirect_stdout(out):
+                rc = score.main(["--ref", r, "--dist", d, "--metric", "both", "--json",
+                                 "--out-csv", str(csv)])
+            counts[as_mp4] = launch_counts()
+            if rc != 0:
+                raise AssertionError(f"score on {'mp4' if as_mp4 else 'dirs'}: rc {rc}")
+            results[as_mp4] = json.loads(out.getvalue().strip().splitlines()[-1])
+            csvs[as_mp4] = csv.read_text()
+    ok = (csvs[True] == csvs[False] and results[True] == results[False]
+          and counts[True]["moments"] > 0 and counts[True]["windowed_tsd"] > 0
+          and imaging.pil_fallbacks == fallbacks
+          and all(math.isfinite(v["video_score"]) for v in results[True].values()))
+    phase("mp4_path", ran=True, frame_hw=list(FRAME_HW), frames=24, result=results[True],
+          frame_dirs_result=results[False], per_frame_equal=csvs[True] == csvs[False],
+          launches=counts[True], pil_fallbacks=imaging.pil_fallbacks - fallbacks)
+    if not ok:
+        raise AssertionError(f"mp4 path: {results}, launches {counts}")
+
+
+def nr_pth(path: Path) -> str:
+    """A reference-layout NR v8 .pth: a seeded decoder at full width."""
+    from nerf_qa_torch.config import NRModelConfig
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+
+    decoder = init_lecun_normal_(NRDecoder(NRModelConfig()),
+                                 torch.Generator().manual_seed(3))
+    torch.save(dict(decoder.state_dict()), path)
+    return str(path)
+
+
+def _post(port: int, payload: dict, timeout: float = 600) -> tuple[dict, float]:
+    import urllib.request
+
+    req = urllib.request.Request(
+        f"http://127.0.0.1:{port}/score", data=json.dumps(payload).encode(),
+        headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        resp = json.loads(r.read())
+    return resp, time.perf_counter() - t0
+
+
+def _gap(got: list[float], want: np.ndarray) -> float:
+    return float(np.abs(np.asarray(got, np.float32) - want).max())
+
+
+def _recording_step(step, record: list, *batch):
+    """A batcher's step that keeps its batch and host scores in
+    ``record``."""
+    from nerf_qa_torch.tools.serve import _host
+
+    out = _host(step(*batch))
+    record.append((batch, out))
+    return out
+
+
+def _frame_key(rows) -> bytes:
+    """One frame's identity across a path's inputs (a digest of its rows)."""
+    import hashlib
+
+    h = hashlib.sha1()
+    for r in rows:
+        h.update(np.ascontiguousarray(r).tobytes())
+    return h.digest()
+
+
+def _scores_by_frame(record: list) -> dict[bytes, set]:
+    """Every score a path's steps gave each distinct input frame."""
+    out: dict[bytes, set] = {}
+    for batch, scores in record:
+        for i, v in enumerate(scores):
+            out.setdefault(_frame_key(b[i] for b in batch), set()).add(np.float32(v))
+    return out
+
+
+def serve_path(model, built: bool) -> None:
+    """Phase serve_path: the scoring service at full width on the card.
+
+    An in-process ``ScoringService`` (--metric both, batch 32, bf16, the
+    bundled α/β, the seeded VGG, an NR v8 .pth from a seeded full-width
+    decoder with ViT-S/14 depth 12) warmed up at 256², behind its HTTP
+    server on a free port; 8 clients each post three FR requests of a
+    12-frame 1080p pair and one NR request, all 32 in flight at once
+    (mp4s where the native decoder builds, JPEG frame directories
+    otherwise). The batches each path stepped are recorded and replayed
+    through the scorers called directly (the same decoded frames at the
+    same batch size and positions), and every response's frames must be
+    among those outputs; the moments, T/S, JBU and ChannelNorm forward
+    kernels' launches are held to their per-step counts times the steps.
+    Then a profiled
+    window of concurrent requests, the host decode share of a lone FR
+    request, and one --full-size request of a 1080p pair, cold and warm."""
+    import threading
+
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights
+    from nerf_qa_torch.config import ADISTSConfig, DISTSConfig
+    from nerf_qa_torch.data import imaging
+    from nerf_qa_torch.eval.video_scorer import batched_map
+    from nerf_qa_torch.tools import score, serve
+
+    rng = np.random.default_rng(11)
+    weights = resolve_dists_weights(DISTSConfig())
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        pairs = []
+        for k in range(2):
+            ref = video_u8(rng, SERVE_FRAMES, base_shift=0.05 * k)
+            dist = np.clip(ref.astype(np.int16) + rng.integers(-15, 16, ref.shape),
+                           0, 255).astype(np.uint8)
+            pairs.append((write_video(root, f"ref{k}", ref, built),
+                          write_video(root, f"dist{k}", dist, built)))
+        args = serve.build_parser().parse_args(
+            ["--http", "0", "--metric", "both", "--batch-size", str(SERVE_BATCH),
+             "--nr-ckpt", nr_pth(root / "nr.pth")])
+        svc = serve.ScoringService(args, model, weights)
+        t0 = time.perf_counter()
+        svc.warmup((256, 256))
+        warmup_s = time.perf_counter() - t0
+        server = serve.make_http_server(svc, 0)
+        port = server.server_address[1]
+        threading.Thread(target=server.serve_forever, daemon=True).start()
+        try:
+            plan = [[(kind, (i + j) % 2) for j, kind in enumerate(SERVE_PLAN)]
+                    for i in range(SERVE_CLIENTS)]
+            responses, errors = [], []
+            lock = threading.Lock()
+            # every client has its four requests in flight at once: all
+            # 32 start together
+            start = threading.Barrier(SERVE_CLIENTS * len(SERVE_PLAN), timeout=600)
+
+            def request(i, kind, k):
+                try:
+                    req = {"id": f"{i}-{kind}-{k}", "dist": pairs[k][1]}
+                    if kind == "fr":
+                        req["ref"] = pairs[k][0]
+                    start.wait()
+                    resp, secs = _post(port, req)
+                    with lock:
+                        responses.append((kind, k, resp, secs))
+                except Exception as e:  # reported below
+                    errors.append(repr(e))
+
+            # every batch a path steps, with its output, for the replay below
+            recorded = {name: [] for name in svc.batchers}
+            step_fns = {name: b.step_fn for name, b in svc.batchers.items()}
+            for name, b in svc.batchers.items():
+                b.step_fn = functools.partial(_recording_step, step_fns[name],
+                                              recorded[name])
+            reset_launches()
+            fallbacks = imaging.pil_fallbacks
+            threads = [threading.Thread(target=request, args=(i, kind, k))
+                       for i in range(SERVE_CLIENTS) for kind, k in plan[i]]
+            t0 = time.perf_counter()
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join()
+            load_s = time.perf_counter() - t0
+            counts = launch_counts()
+            stats = svc.stats()
+            steps = {k: b.device_steps for k, b in svc.batchers.items()}
+            for name, b in svc.batchers.items():
+                b.step_fn = step_fns[name]
+            if errors or any("error" in r for _, _, r, _ in responses):
+                raise AssertionError(f"serve_path: {errors} "
+                                     f"{[r for _, _, r, _ in responses if 'error' in r]}")
+            n_req = len(responses)
+            expect = {"moments": 6 * (steps["dists"] + steps["nr"]),
+                      "windowed_tsd": 5 * steps["adists"],
+                      "jbu": 4 * steps["nr"], "channelnorm": NR_CN_PER_BATCH * steps["nr"]}
+            if any(counts[k] != v or v == 0 for k, v in expect.items()):
+                raise AssertionError(f"serve_path launches {counts}, expected {expect} "
+                                     f"for steps {steps}")
+
+            # The scorers called directly on the batches the service stepped
+            # (the same decoded frames at the same batch size and positions):
+            # a frame's score moves with its position in the batch (cuDNN's
+            # last-stage convolution rounds a bf16 feature differently at
+            # another position of the batch on an H100), not with the other
+            # frames. Each response's frames must be among those outputs.
+            acfg = ADISTSConfig(compute_dtype="bfloat16")
+            direct = {"dists": svc.scorer.score_batch,
+                      "adists": lambda a, b: score.adists_batch(model, a, b, acfg),
+                      "nr": svc.nr_scorer.step_batch}
+            gaps = {m: max(_gap(out, serve._host(direct[m](*batch)))
+                           for batch, out in recorded[m]) for m in recorded}
+            outputs = {m: _scores_by_frame(recorded[m]) for m in recorded}
+            # the responses' frames keyed as the batchers saw them; and, for
+            # the record, the direct scorers with each request's frames at
+            # the batch's first positions (batched_map's padding)
+            unmatched, own_position_gaps = [], {m: 0.0 for m in recorded}
+            for k, (r, d) in enumerate(pairs):
+                ref_f = score._load_frames(r, True, False)
+                dist_f = score._load_frames(d, True, False)
+                nr_in = svc.nr_scorer.prep_frames(score._load_frames(d, False, False))
+                inputs = {"dists": (dist_f, ref_f), "adists": (dist_f, ref_f), "nr": nr_in}
+                want = {
+                    "dists": svc.scorer.score_frames(dist_f, ref_f, SERVE_BATCH),
+                    "adists": batched_map(
+                        lambda a, b: score.adists_batch(model, a, b, acfg).cpu().numpy(),
+                        (dist_f, ref_f), SERVE_BATCH),
+                    "nr": batched_map(lambda a, b: svc.nr_scorer.step_batch(a, b).cpu().numpy(),
+                                      nr_in, SERVE_BATCH),
+                }
+                for kind, kk, resp, _ in responses:
+                    if kk != k:
+                        continue
+                    for m in (("dists", "adists") if kind == "fr" else ("nr",)):
+                        own_position_gaps[m] = max(own_position_gaps[m],
+                                                   _gap(resp[f"{m}_frames"], want[m]))
+                        for i, v in enumerate(resp[f"{m}_frames"]):
+                            key = _frame_key(a[i] for a in inputs[m])
+                            if np.float32(v) not in outputs[m].get(key, ()):
+                                unmatched.append((resp["id"], m, i))
+            if max(gaps.values()) > SERVE_DIRECT_ATOL or unmatched:
+                raise AssertionError(f"serve_path vs direct scorers: {gaps}, response "
+                                     f"frames not among the steps' outputs: {unmatched[:8]}")
+            if imaging.pil_fallbacks != fallbacks:
+                raise AssertionError("serve_path took PIL fallbacks")
+
+            # a steady window of concurrent FR requests under the profiler
+            def window():
+                ts = [threading.Thread(target=svc.handle, args=(
+                    {"id": i, "dist": pairs[i % 2][1], "ref": pairs[i % 2][0]},))
+                    for i in range(4)]
+                for t in ts:
+                    t.start()
+                for t in ts:
+                    t.join()
+
+            prof = profile_step(window)
+            # the host decode share of a lone FR request
+            t0 = time.perf_counter()
+            score._load_frames(pairs[0][1], True, False)
+            score._load_frames(pairs[0][0], True, False)
+            decode_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            svc.handle({"id": "lone", "dist": pairs[0][1], "ref": pairs[0][0]})
+            lone_s = time.perf_counter() - t0
+        finally:
+            server.shutdown()
+            server.server_close()
+            svc.close()
+        fr_lat = sorted(s for kind, _, _, s in responses if kind == "fr")
+        nr_lat = sorted(s for kind, _, _, s in responses if kind == "nr")
+        frames = sum(r["frames"] for _, _, r, _ in responses)
+        phase("serve_path", batch=SERVE_BATCH, clients=SERVE_CLIENTS,
+              frames_per_request=SERVE_FRAMES, frame_hw=list(FRAME_HW),
+              inputs="mp4" if built else "jpeg_frame_dirs", requests=n_req,
+              warmup_s=warmup_s, load_s=load_s, requests_per_s=n_req / load_s,
+              frames_per_s=frames / load_s, stats=stats, device_steps=steps,
+              launches=counts, launches_expected=expect,
+              client_latency_s={"fr_min": fr_lat[0], "fr_p50": fr_lat[len(fr_lat) // 2],
+                                "fr_max": fr_lat[-1], "nr_min": nr_lat[0],
+                                "nr_p50": nr_lat[len(nr_lat) // 2], "nr_max": nr_lat[-1]},
+              max_gap_vs_direct_on_stepped_batches=gaps,
+              max_gap_vs_direct_at_own_positions=own_position_gaps,
+              pil_fallbacks=imaging.pil_fallbacks - fallbacks,
+              lone_fr_request_s=lone_s, lone_fr_decode_s=decode_s,
+              host_decode_share=decode_s / lone_s, window=prof)
+        if not stats["device_steps"] < n_req == stats["requests"]:
+            raise AssertionError(f"serve_path: no coalescing: {stats}")
+
+        # --full-size: DISTS (moments) and ADISTS (T/S) at 1080p, one new
+        # shape bucket: the first request is cold, the second warm
+        ref = video_u8(rng, FULL_SIZE_FRAMES)
+        dist = np.clip(ref.astype(np.int16) + 10, 0, 255).astype(np.uint8)
+        req = {"id": "full", "ref": write_video(root, "full_ref", ref, built),
+               "dist": write_video(root, "full_dist", dist, built)}
+        full = serve.ScoringService(serve.build_parser().parse_args(
+            ["--stdio", "--full-size", "--metric", "both", "--batch-size",
+             str(FULL_SIZE_FRAMES)]), model, weights)
+        try:
+            reset_launches()
+            t0 = time.perf_counter()
+            cold = full.handle(req)
+            cold_s = time.perf_counter() - t0
+            cold_counts = launch_counts()
+            t0 = time.perf_counter()
+            warm = full.handle(req)
+            warm_s = time.perf_counter() - t0
+        finally:
+            full.close()
+    if "error" in cold or "error" in warm:
+        raise AssertionError(f"serve --full-size: {cold} / {warm}")
+    repeat_gap = max(_gap(warm[f"{m}_frames"], np.asarray(cold[f"{m}_frames"], np.float32))
+                     for m in ("dists", "adists"))
+    ok = (repeat_gap <= SERVE_DIRECT_ATOL and cold_counts["moments"] == 6
+          and cold_counts["windowed_tsd"] == len(tsd_shapes(1, *FRAME_HW))
+          and all(math.isfinite(v) for v in cold["dists_frames"] + cold["adists_frames"]))
+    phase("serve_full_size", frame_hw=list(FRAME_HW), frames=FULL_SIZE_FRAMES,
+          cold_s=cold_s, warm_s=warm_s, launches=cold_counts, response=cold,
+          warm_vs_cold_gap=repeat_gap)
+    if not ok:
+        raise AssertionError(f"serve --full-size: {cold} / {warm}, launches {cold_counts}")
+
+
+def serve_cli(model) -> None:
+    """Phase serve_cli: ``python3 -m nerf_qa_torch.tools.serve --stdio
+    --metric dists --no-warmup`` as a subprocess on two requests, on its
+    default device (the card): its scores equal the card's FrameScorer on
+    the same frames."""
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights
+    from nerf_qa_torch.config import DISTSConfig
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+    from nerf_qa_torch.tools import score
+
+    rng = np.random.default_rng(12)
+    with tempfile.TemporaryDirectory() as tmp:
+        root = Path(tmp)
+        reqs = []
+        for k in range(2):
+            ref = video_u8(rng, 2, (96, 128))
+            dist = np.clip(ref.astype(np.int16) + 8 * (k + 1), 0, 255).astype(np.uint8)
+            reqs.append({"id": k, "ref": write_video(root, f"r{k}", ref, False),
+                         "dist": write_video(root, f"d{k}", dist, False)})
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "nerf_qa_torch.tools.serve", "--stdio", "--metric",
+             "dists", "--no-warmup"],
+            input="".join(json.dumps(r) + "\n" for r in reqs), capture_output=True,
+            text=True, timeout=600, cwd=Path(__file__).resolve().parent)
+        secs = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"serve CLI rc {proc.returncode}: {proc.stderr[-2000:]}")
+        resp = [json.loads(line) for line in proc.stdout.splitlines()]
+        cfg = DISTSConfig(compute_dtype="bfloat16", stats_impl="kernel")
+        scorer = FrameScorer(model, resolve_dists_weights(DISTSConfig()), cfg,
+                             resize_to=None)
+        gaps = [_gap(r["dists_frames"], scorer.score_frames(
+            score._load_frames(q["dist"], True, False),
+            score._load_frames(q["ref"], True, False), 32)) for r, q in zip(resp, reqs)]
+    ok = (len(resp) == 2 and all("error" not in r and r["frames"] == 2 for r in resp)
+          and max(gaps) <= SERVE_DIRECT_ATOL)
+    phase("serve_cli", argv="--stdio --metric dists --no-warmup", seconds=secs,
+          responses=resp, max_gap_vs_card_scorer=max(gaps) if gaps else None)
+    if not ok:
+        raise AssertionError(f"serve CLI: {resp} {gaps} {proc.stderr[-2000:]}")
+
+
+def feed(model) -> None:
+    """Phase feed: bench_feed's dists_jpeg, dists_uint8_cache and nr_full
+    modes (sustained frames/s, host decode feeding the card), each beside
+    the device rate of the same step on inputs already on the card."""
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights, resolve_vit_params
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+    from nerf_qa_torch.models.nr.model import NRModel
+    from nerf_qa_torch.tools import bench_feed
+
+    t0 = time.perf_counter()
+    res = bench_feed.run(frames=FEED_FRAMES, n_pairs=16, batch=16, modes=FEED_MODES)
+    feed_s = time.perf_counter() - t0
+    cfg = DISTSConfig(compute_dtype="bfloat16", stats_impl="kernel")
+    scorer = FrameScorer(model, resolve_dists_weights(cfg), cfg, resize_to=None)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand((16, 256, 256, 3), generator=gen, device="cuda")
+    u8 = (x * 255).to(torch.uint8)
+    device_fps = {
+        "dists_jpeg": 16 / time_ms(lambda: scorer.score_batch(x, x.flip(0))) * 1e3,
+        "dists_uint8_cache": 16 / time_ms(lambda: scorer.score_batch(u8, u8.flip(0))) * 1e3,
+    }
+    ncfg = NRModelConfig(transformer_decoder_depth=2, refine_up_depth=2, dropout_rate=0.2,
+                         decoder_dtype="bfloat16", dists=cfg)
+    nr = NRModel(model, cfg=ncfg, seed=0, vit=resolve_vit_params(depth=12)).to("cuda").eval()
+    r224 = torch.rand((8, 224, 224, 3), generator=gen, device="cuda")
+    with torch.no_grad():
+        device_fps["nr_full"] = 8 / time_ms(lambda: nr(x[:8], r224), iters=10) * 1e3
+    missing = [m for m in FEED_MODES if not res.get(f"fps_{m}", 0) > 0]
+    phase("feed", seconds=feed_s, result=res, device_fps=device_fps,
+          feed_share_of_device_rate={m: res[f"fps_{m}"] / device_fps[m]
+                                     for m in FEED_MODES if m not in missing})
+    if missing:
+        raise AssertionError(f"feed: no rate for {missing}: {res}")
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3012,6 +3533,20 @@ def main() -> int:
     fr_train_cpu_parity(gen)
     fr_cli_run()
     fr_quality()
+
+    # 11. the data feed and the scoring service: the native decoder, mp4s
+    # through the score CLI, the service at full width over HTTP (all four
+    # forward kernels), its CLI in a subprocess, and the feed benchmark
+    t0 = time.perf_counter()
+    built = native_decoder()
+    phase("timing_of_phase", which="native_decoder", seconds=time.perf_counter() - t0)
+    for name, run in (("mp4_path", lambda: mp4_path(built)),
+                      ("serve_path", lambda: serve_path(model, built)),
+                      ("serve_cli", lambda: serve_cli(model)),
+                      ("feed", lambda: feed(model))):
+        t0 = time.perf_counter()
+        run()
+        phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
 
     entries = [{
         "name": "moments",

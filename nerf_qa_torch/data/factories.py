@@ -99,8 +99,7 @@ def create_test_video_dataloader(row: Mapping, dir: str, resize: bool = True,
                                  keep_aspect_ratio: bool = False,
                                  batch_size: int = DEVICE_BATCH_SIZE_FR):
     """Load both videos of one benchmark row and return (dist, ref) frame
-    stacks (data.py:395-405). Frame directories only: an mp4 raises
-    (ROADMAP Queue 1 item 10)."""
+    stacks (data.py:395-405); each is a frame directory or an mp4."""
     ref_path = path.join(dir, "Reference", row["reference_filename"])
     dist_path = path.join(dir, "NeRF-QA_videos", row["distorted_filename"])
     ref = load_video_frames(ref_path, resize=resize,

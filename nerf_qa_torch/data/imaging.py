@@ -1,19 +1,48 @@
-"""Host-side image decode, resize and paired augmentation (PIL route).
+"""Host-side image decode, resize and paired augmentation.
 
-A copy of the PIL route of ``nerf_qa_tpu/data/imaging.py``: PIL decode
-with RGBA->white compositing (data.py:64-84), torch-geometry bilinear
-resize, ``load_resized``, ``prepare_image`` (DISTS_pt.py:210-217), and
-the paired random resize and crop of the FR augmentation (data.py:315-325)
+Counterpart of ``nerf_qa_tpu/data/imaging.py``: PIL decode with
+RGBA->white compositing (data.py:64-84), torch-geometry bilinear resize,
+``load_resized`` and ``load_prepared`` (DISTS_pt.py:210-217), and the
+paired random resize and crop of the FR augmentation (data.py:315-325)
 and rotation of the NR one (data.py:508-513), with every random number
-from an explicit numpy Generator. The native decoder and fast decode come
-with the data-feed slice (ROADMAP Queue 1 item 10). Pillow is optional:
-without it the loaders raise.
+from an explicit numpy Generator.
+
+``load_resized`` and ``load_prepared`` (square-256 policy) decode through
+the native C++ layer (``data/native.py``) when it builds, and through PIL
+otherwise. A native error on a file falls back to PIL, as in the JAX
+package, but is counted: ``pil_fallbacks`` is the number of such
+fallbacks taken while the library was available (0 on a healthy feed).
 """
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
+
+from nerf_qa_torch.data import native
+
+# PIL decodes taken because the native library raised on a file while it
+# was available (load_resized, load_prepared)
+pil_fallbacks = 0
+
+
+def fast_decode_enabled() -> bool:
+    """Opt-in DCT-scaled JPEG decode for the feed paths
+    (``NERF_QA_TORCH_FAST_DECODE=1``): the native layer decodes JPEGs at
+    the largest 1/{2,4,8} DCT scale that still covers the target before
+    the bilinear resize; PNG is unaffected.
+
+    Scoring caveat: the DCT scale is an antialiased downsample, whereas
+    the reference's bilinear-from-full-resolution (data.py:81-82,
+    DISTS_pt.py:212) aliases, so per-pixel noise is attenuated through
+    the fast path. The JAX package measured a σ=0.05 noise pair at 1080p
+    scoring DISTS 0.0023 exact against 0.0002 fast (its own measurement,
+    nerf_qa_tpu/data/imaging.py). Use it only where both sides of every
+    pair take the same path and distortions are low-frequency; never for
+    reference-parity scoring. Off by default for that reason."""
+    return os.environ.get("NERF_QA_TORCH_FAST_DECODE", "0") == "1"
+
 
 try:
     from PIL import Image
@@ -27,8 +56,7 @@ def load_image_rgb(path: str) -> np.ndarray:
     """Decode to float32 HWC RGB in [0,1]; RGBA composites onto white
     (data.py:64-84)."""
     if not _HAVE_PIL:
-        raise RuntimeError("PIL unavailable; install Pillow to decode images "
-                           "(the native decoder is not yet ported)")
+        raise RuntimeError("PIL unavailable; build the native decoder")
     img = Image.open(path)
     if img.mode == "RGBA":
         bg = Image.new("RGBA", img.size, (255, 255, 255))
@@ -62,9 +90,21 @@ def resize_image(img: np.ndarray, out_h: int, out_w: int) -> np.ndarray:
     return x
 
 
+def _count_fallback() -> None:
+    global pil_fallbacks
+    pil_fallbacks += 1
+
+
 def load_resized(path: str, out_h: int, out_w: int) -> np.ndarray:
-    """Decode + bilinear resize to float32 (out_h, out_w, 3) (the PIL
-    route of the JAX package's fused decode+resize)."""
+    """Fused decode+resize to float32 (out_h, out_w, 3): the native layer
+    when it builds (same numerics as the PIL route, held by
+    tests/test_torch_native_decoder.py), PIL otherwise."""
+    if native.available():
+        try:
+            return native.decode_resize(path, out_h, out_w,
+                                        fast=fast_decode_enabled())
+        except (IOError, RuntimeError):
+            _count_fallback()
     return resize_image(load_image_rgb(path), out_h, out_w)
 
 
@@ -91,7 +131,18 @@ def prepare_image(img: np.ndarray, resize: bool = True,
 
 def load_prepared(path: str, resize: bool = True,
                   keep_aspect_ratio: bool = False) -> np.ndarray:
-    """Decode + prepare_image in one step."""
+    """Decode + prepare_image in one step. For the square-256 policy the
+    native layer decodes and resizes without a PIL round trip when it
+    builds (the FR loaders' hot path; same numerics)."""
+    if resize and not keep_aspect_ratio and native.available():
+        try:
+            h, w = native.image_size(path)
+            if min(h, w) > 256:
+                return native.decode_resize(path, 256, 256,
+                                            fast=fast_decode_enabled())
+            return native.decode_resize(path, h, w)
+        except (IOError, RuntimeError):
+            _count_fallback()
     return prepare_image(load_image_rgb(path), resize=resize,
                          keep_aspect_ratio=keep_aspect_ratio)
 

@@ -9,9 +9,8 @@ the correlations against MOS and DMOS, plus the L1 against the
 precomputed DISTS column, as ``Test Metrics Dict/{subset}/{target}/{metric}``.
 
 Rows are the benchmark CSV read with ``csv`` (dicts of strings). Videos
-are frame directories named after each video; the reference layout's
-mp4s (``NeRF-QA_videos/<mp4>``) wait for the data feed's mp4 decode
-(``data/video.py`` raises naming ROADMAP Queue 1 item 10).
+are the reference layout's mp4s (``NeRF-QA_videos/<mp4>``) or frame
+directories named after each video.
 """
 from __future__ import annotations
 

@@ -21,18 +21,20 @@ import torch
 from nerf_qa_torch.config import DISTSConfig, resolve_device, true_fp32
 from nerf_qa_torch.core import dists
 from nerf_qa_torch.core.vgg import VGG16Pyramid
-from nerf_qa_torch.ops.resize import resize_bilinear
+from nerf_qa_torch.ops.resize import resize_bilinear, resize_bilinear_aa
 
 _PARALLEL_TODO = ("multi-device scoring is not yet ported (ROADMAP Queue 1 "
                   "item 14, parallel/)")
 
 
 def _prep(frames: torch.Tensor, out_hw: tuple[int, int] | None,
-          fast: bool = False) -> torch.Tensor:
+          fast: bool = False, antialias: bool = False) -> torch.Tensor:
     """Frames (uint8 or float in [0, 1]) -> fp32 NHWC in [0, 1] at
     ``out_hw`` (None: input resolution)."""
     scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
     if out_hw is not None and tuple(frames.shape[1:3]) != tuple(out_hw):
+        if antialias:
+            return resize_bilinear_aa(frames.float() * scale, *out_hw)
         if fast:
             # serving path: bf16 matmul resize with folded normalisation
             return resize_bilinear(frames, out_hw[0], out_hw[1],
@@ -75,7 +77,8 @@ class FrameScorer:
         is the parity oracle.
       resize_to: target (H, W) before scoring, or None to score at input
         resolution (full-size mode).
-      antialias: the antialiased resizer; not yet ported.
+      antialias: resize with the antialiased bilinear resizer
+        (``ops.resize.resize_bilinear_aa``) instead of the plain one.
       mesh, spatial: multi-device scoring; not yet ported.
       device: where to run; None means the card, and raises without one.
     """
@@ -94,15 +97,12 @@ class FrameScorer:
     ):
         if mesh is not None or spatial:
             raise NotImplementedError(_PARALLEL_TODO)
-        if antialias:
-            raise NotImplementedError(
-                "the antialiased resize is not yet ported (ROADMAP Queue 1 "
-                "item 2)")
         self.device = resolve_device(device)
         self.model = model.to(self.device).eval()
         self.weights = weights.to(self.device)
         self.cfg = cfg
         self.resize_to = resize_to
+        self.antialias = antialias
 
     def score_batch(self, dist_frames, ref_frames) -> torch.Tensor:
         """Per-frame scores (a device tensor) for one batch; numpy arrays
@@ -113,8 +113,8 @@ class FrameScorer:
         # the fp32 path resizes and convolves in true fp32 (no TF32)
         precision = contextlib.nullcontext() if fast else true_fp32()
         with torch.no_grad(), precision:
-            x = _prep(d, self.resize_to, fast)
-            y = _prep(r, self.resize_to, fast)
+            x = _prep(d, self.resize_to, fast, self.antialias)
+            y = _prep(r, self.resize_to, fast, self.antialias)
             return dists.forward(self.model, self.weights, x, y, self.cfg)
 
     def score_frames(self, dist_frames, ref_frames,

@@ -3,16 +3,17 @@
 
 Counterpart of ``nerf_qa_tpu/ops/resize.py`` (``_resize_matrix``,
 ``resize_bilinear``, ``_cubic_weights``, ``_bicubic_matrix``,
-``resize_bicubic``, ``adaptive_avg_pool``, ``shortest_side_target``).
-Each resize is two plain matrix products with the JAX package's (out, in)
-matrices; a row holds the lerp, cubic or bin weights, so the fp32 results
-equal torch's gather form to rounding. The antialiased resize is not yet
-ported.
+``resize_bicubic``, ``adaptive_avg_pool``, ``resize_bilinear_aa``,
+``shortest_side_target``). Each resize but the antialiased one is two
+plain matrix products with the JAX package's (out, in) matrices; a row
+holds the lerp, cubic or bin weights, so the fp32 results equal torch's
+gather form to rounding.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def _resize_matrix(in_size: int, out_size: int,
@@ -150,6 +151,18 @@ def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     n, h, w, c = x.shape
     return _separable(x, _pool_matrix(h, out_h) if h != out_h else None,
                       _pool_matrix(w, out_w) if w != out_w else None)
+
+
+def resize_bilinear_aa(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Antialiased bilinear resize of NHWC, fp32: the triangle kernel
+    widened by the scale when downsampling, plain bilinear when
+    upsampling. The JAX package leaves it to ``jax.image.resize(...,
+    "bilinear")``; torch's ``F.interpolate(antialias=True)`` computes the
+    same weights (tests/test_torch_resize_aa.py holds it to rtol 1e-5,
+    atol 1e-6)."""
+    y = F.interpolate(x.float().permute(0, 3, 1, 2), size=(out_h, out_w),
+                      mode="bilinear", align_corners=False, antialias=True)
+    return y.permute(0, 2, 3, 1).contiguous()
 
 
 def shortest_side_target(h: int, w: int, side: int = 256) -> tuple[int, int]:

@@ -1,5 +1,5 @@
-"""Score image pairs or frame directories with DISTS and ADISTS, or renders
-alone with the NR model, on the GPU.
+"""Score image pairs, frame directories or mp4 videos with DISTS and
+ADISTS, or renders alone with the NR model, on the GPU.
 
 Counterpart of ``nerf_qa_tpu/tools/score.py``: the metric's __main__ CLI
 (DISTS_pt.py:220-238, one image pair) and the per-video evaluation loops
@@ -9,11 +9,14 @@ moments kernel by default, ``--fp32`` for the parity path (fp32, eager
 statistics). ADISTS (``--metric adists|both``) runs fixed-shape batches
 through ``adists_batch`` with the distorted frame as ``x``, as the JAX
 CLI does; ``--fp32`` sets fp32 and keeps the windowed T/S kernel.
+Inputs are single images, directories of frames, or mp4 files (MJPEG
+mp4s decode through the native demuxer, ``data/video.py``).
 
 Examples:
   python -m nerf_qa_torch.tools.score --ref r0.png --dist r1.png
   python -m nerf_qa_torch.tools.score --ref gt_dir --dist render_dir \\
       --metric both --json
+  python -m nerf_qa_torch.tools.score --ref gt.mp4 --dist render.mp4
   python -m nerf_qa_torch.tools.score --ref gt_dir --dist render_dir \\
       --full-size --out-csv scores.csv --json
   python -m nerf_qa_torch.tools.score --ref a.png --dist b.png --device cpu
@@ -48,7 +51,7 @@ from nerf_qa_torch.config import (
 from nerf_qa_torch.core import adists
 from nerf_qa_torch.core.dists import weights_from_arrays
 from nerf_qa_torch.data.imaging import load_prepared, resize_image
-from nerf_qa_torch.data.video import MP4_TODO, load_video_frames
+from nerf_qa_torch.data.video import load_video_frames
 from nerf_qa_torch.eval.video_scorer import FrameScorer, batched_map
 from nerf_qa_torch.models.nr.decoder import NRDecoder
 from nerf_qa_torch.models.nr.model import NRModel
@@ -59,9 +62,7 @@ NR_SIZES = (256, 224)
 
 
 def _load_frames(path: str, resize: bool, keep_aspect: bool) -> np.ndarray:
-    if path.endswith((".mp4", ".mov")):
-        raise SystemExit(f"{path}: {MP4_TODO}")
-    if os.path.isdir(path):
+    if os.path.isdir(path) or path.endswith((".mp4", ".mov")):
         return load_video_frames(path, resize=resize,
                                  keep_aspect_ratio=keep_aspect)
     img = load_prepared(path, resize=resize, keep_aspect_ratio=keep_aspect)
@@ -148,8 +149,6 @@ def load_nr_model(args) -> NRModel:
 
 def _score_nr(args) -> int:
     """No-reference scoring CLI path (see NRScorer)."""
-    if args.dist.endswith((".mp4", ".mov")):
-        raise SystemExit(f"{args.dist}: {MP4_TODO}")
     frames = _load_frames(args.dist, resize=False, keep_aspect=False)
     out = NRScorer(load_nr_model(args), args.batch_size,
                    args.device).score_frames(frames)
@@ -169,13 +168,14 @@ def _score_nr(args) -> int:
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(
-        description="DISTS scoring for image pairs or frame directories, "
+        description="DISTS/ADISTS scoring for image pairs or videos, "
                     "NR scoring for renders alone"
     )
     p.add_argument("--ref", default=None,
-                   help="reference image or frame directory")
+                   help="reference image, frame directory, or mp4 "
+                        "(not needed with --nr)")
     p.add_argument("--dist", required=True,
-                   help="distorted image or frame directory")
+                   help="distorted image, frame directory, or mp4")
     p.add_argument("--nr", action="store_true",
                    help="no-reference mode: score renders with an NR v8 "
                         "model (needs --nr-ckpt)")

@@ -17,6 +17,8 @@ from PIL import Image
 
 from nerf_qa_torch.data import datasets as tds
 from nerf_qa_torch.data import factories as tfac
+from nerf_qa_torch.data import native
+from nerf_qa_torch.data import video as tvid
 from nerf_qa_torch.eval import correlations as tcorr
 from nerf_qa_torch.logging import figures as tfig
 from nerf_qa_torch.logging import metrics as tmet
@@ -24,6 +26,7 @@ from nerf_qa_torch.tools import make_synthetic_dataset as tsynth
 from nerf_qa_torch.tools.run_fr import read_rows
 from nerf_qa_tpu.data import datasets as jds
 from nerf_qa_tpu.data import factories as jfac
+from nerf_qa_tpu.data import video as jvid
 from nerf_qa_tpu.eval import correlations as jcorr
 from nerf_qa_tpu.logging import figures as jfig
 from nerf_qa_tpu.logging import metrics as jmet
@@ -196,9 +199,25 @@ def test_test_video_loader_reads_frame_dirs_and_refuses_mp4(tmp_path, fr_tree):
     want = jfac.create_test_video_dataloader(r, str(tmp_path))
     for g, w in zip(got, want, strict=True):
         np.testing.assert_array_equal(g, w)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
-        tfac.create_test_video_dataloader({"reference_filename": "a.mp4",
-                                           "distorted_filename": "b.mp4"}, str(tmp_path))
+    # mp4s are no longer refused: each frame tree as a Motion-JPEG mp4
+    # (written by the port) reads as the JAX package reads the same JPEGs
+    # from frame directories
+    if not native.available():
+        pytest.skip(f"native decoder: {native.unavailable_reason()}")
+    for (name, sub), frames in zip((("ref.mp4", "Reference"),
+                                    ("dist.mp4", "NeRF-QA_videos")), want[::-1]):
+        u8 = (frames * 255 + 0.5).astype(np.uint8)
+        tvid.write_mjpeg_mp4(str(tmp_path / sub / name), u8)
+        jpg_dir = tmp_path / "jpg" / name
+        jpg_dir.mkdir(parents=True)
+        for i, f in enumerate(u8):
+            Image.fromarray(f).save(jpg_dir / f"{i:03d}.jpg", quality=90)
+    got = tfac.create_test_video_dataloader({"reference_filename": "ref.mp4",
+                                             "distorted_filename": "dist.mp4"},
+                                            str(tmp_path))
+    for g, name in zip(got, ("dist.mp4", "ref.mp4"), strict=True):
+        np.testing.assert_array_equal(
+            g, jvid.load_video_frames(str(tmp_path / "jpg" / name)))
 
 
 def _video_report():
@@ -294,8 +313,16 @@ for name in names:
     importlib.import_module(name)
 importlib.import_module("chip_smoke")
 print(len(names))
+print(" ".join(names))
 """
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
-    assert int(out.stdout.strip()) >= 40
+    count, names = out.stdout.strip().splitlines()
+    assert int(count) >= 60
+    # the data feed and the service (the decoder's bindings, mp4, serve and
+    # the feed benchmarks) among them
+    assert {"nerf_qa_torch.data.native", "nerf_qa_torch.data.video",
+            "nerf_qa_torch.tools.serve", "nerf_qa_torch.tools.convert_video",
+            "nerf_qa_torch.tools.bench_feed",
+            "nerf_qa_torch.tools.bench_host_decode"} <= set(names.split())

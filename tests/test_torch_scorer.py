@@ -116,7 +116,18 @@ def test_frame_scorer_needs_a_device_without_cuda(torch_model, monkeypatch):
 
 @pytest.mark.parametrize("kw", [dict(mesh=object()), dict(spatial=True),
                                 dict(antialias=True)])
-def test_frame_scorer_unported_options_raise(torch_model, kw):
+def test_frame_scorer_unported_options_raise(jax_params, torch_model, frames, kw):
+    if "antialias" in kw:
+        # ported since: scores as the JAX scorer with antialias=True
+        # (fp32 + eager, 90x120 uint8 -> 64x64: atol 1e-4)
+        d, r = frames
+        want = JFrameScorer(jax_params, jdists.load_pretrained_weights(),
+                            cfg=JConfig(), resize_to=(64, 64),
+                            **kw).score_frames(d, r, batch_size=5)
+        got = _scorer(torch_model, resize_to=(64, 64), **kw).score_frames(
+            d, r, batch_size=5)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         _scorer(torch_model, **kw)
 
@@ -210,10 +221,15 @@ def test_score_cli_image_pair_default_path_and_csv(pair_dirs, tmp_path, capsys):
                                    ["--dist", "clip.mp4"]])
 def test_score_cli_unported_modes_exit(pair_dirs, extra):
     # an orbax checkpoint is not ported at all (it needs JAX: ROADMAP's
-    # "Not to port"); mp4 input is not yet ported
+    # "Not to port"); an mp4 or mov the native demuxer cannot read (here
+    # a missing file) needs an ffmpeg backend, and without one raises the
+    # JAX package's message
     ref_dir, dist_dir, _ = pair_dirs
-    match = "Not to port" if "--nr" in extra else "not yet ported"
-    with pytest.raises(SystemExit, match=match):
+    if "--nr" in extra:
+        err, match = SystemExit, "Not to port"
+    else:
+        err, match = RuntimeError, "needs an ffmpeg backend"
+    with pytest.raises(err, match=match):
         tscore_main(["--ref", ref_dir, "--dist", dist_dir, "--device", "cpu",
                      *extra])
 
