@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
 ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives seven paths at full width and
+plain PyTorch version on the card. It drives eight paths at full width and
 checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
@@ -67,7 +67,21 @@ checks that each went through its kernels:
   share and the host decode share (``serve_path``), a ``--full-size``
   1080p request cold and warm (``serve_full_size``), the service's CLI
   in a subprocess on its default device (``serve_cli``), and the feed
-  benchmark's sustained rates beside the device's (``feed``).
+  benchmark's sustained rates beside the device's (``feed``);
+* the comparison and readiness tools: the eleven classical IQA metrics
+  (``eval/iqa.py``, true fp32) at prep_fr's sizes (batch 8 at 256², two
+  1080p pairs), identities, ms a batch in turns and frames/s, the card
+  against the CPU path (``iqa_metrics``, ``iqa_cpu_parity``);
+  ``prep_fr --iqa`` with all eleven columns, DISTS and ADISTS on a
+  synthetic tree, 6 moments and 5 T/S launches a batch, wall time a video
+  with and without the columns (``prep_fr_iqa``); ``plot_results`` on its
+  CSV (``results_tables``); ``golden_check`` card against CPU and its CLI
+  (``golden_check``); a 64-image retrieval index and ``pseudo_fr_score``
+  of shifted pairs, its fp32 parts card against CPU (``retrieval``);
+  ``verify_assets`` over seeded checkpoints in the reference layouts, 4
+  JBU and 18 ChannelNorm launches an NR v8 forward (``verify_assets``);
+  and a three-trial bayes sweep of the bundled FR config through run_fr
+  (``sweep``).
 
 It checks and times each kernel at its paths' shapes against its plain
 version, with its bound and a PyTorch yardstick (the ChannelNorm
@@ -3293,6 +3307,398 @@ def feed(model) -> None:
         raise AssertionError(f"feed: no rate for {missing}: {res}")
 
 
+# The comparison and readiness tools: the classical IQA metrics (eval/iqa.py)
+# at prep_fr's sizes, prep_fr --iqa, the results tables, golden_check,
+# retrieval with pseudo-FR scoring, verify_assets and the sweep driver.
+IQA_METRICS = ("psnr", "ssim", "ms-ssim", "lpips", "st-lpips", "gmsd", "vif", "fsim",
+               "fsimc", "nlpd", "mad")
+IQA_COLUMNS = ("PSNR", "SSIM", "MS-SSIM", "LPIPS", "ST-LPIPS", "GMSD", "VIF", "FSIM",
+               "FSIMc", "NLPD", "MAD")
+# prep_fr's batches: the CLI default (batch 8 at 256²) and --policy
+# full_size (two 1080p pairs)
+IQA_SIZES = (("256", 8, 256, 256), ("1080p", 2, *FRAME_HW))
+IQA_TIMED = 3  # calls a turn, two turns a metric
+# the CPU tests' bars (tests/test_torch_iqa.py): fp32, MAD's detection index
+# ill-conditioned in fp32
+IQA_RTOL, IQA_ATOL, IQA_MAD_RTOL = 1e-4, 1e-5, 1e-3
+IQA_IS_ONE = ("ssim", "ms-ssim", "vif", "fsim", "fsimc")
+IQA_IS_ZERO = ("lpips", "st-lpips", "gmsd", "nlpd", "mad")
+PREP_IQA_VIDEOS = 8  # eight videos of eight frames: one prep batch each
+GOLDEN_ATOL = 1e-4
+RETRIEVAL_INDEX = 64
+RETRIEVAL_GRID_ATOL = 1e-3  # pixels (tests/test_torch_retrieval.py)
+SWEEP_TRIALS = 3
+
+
+def iqa_fns(vgg) -> dict:
+    """Each metric as prep_fr calls it, (render, ref) in, one score per
+    image out (VIF and MAD are swapped there; here both take x, y)."""
+    from nerf_qa_torch.eval import iqa
+
+    return {"psnr": iqa.psnr, "ssim": iqa.ssim, "ms-ssim": iqa.ms_ssim,
+            "lpips": lambda a, b: iqa.lpips(vgg, a, b),
+            "st-lpips": lambda a, b: iqa.st_lpips(vgg, a, b), "gmsd": iqa.gmsd,
+            "vif": iqa.vif, "fsim": iqa.fsim, "fsimc": iqa.fsimc,
+            "nlpd": lambda a, b: iqa.nlpd(a, b, levels=iqa.nlpd_max_levels(*a.shape[1:3])),
+            "mad": iqa.mad}
+
+
+def textured_pairs(n: int, h: int, w: int, gen, shift=(0, 0)):
+    """(x, y): n textured NHWC fp32 images in [0, 1] on the generator's
+    device (each its own frequencies, lightly noisy) and noisy copies;
+    ``shift`` offsets the pattern by (rows, columns)."""
+    dev = gen.device
+    yy = torch.arange(h, device=dev, dtype=torch.float32)[None, :, None, None] + shift[0]
+    xx = torch.arange(w, device=dev, dtype=torch.float32)[None, None, :, None] + shift[1]
+    f = 4.0 + 24.0 * torch.rand((n, 1, 1, 3), generator=gen, device=dev)
+    x = 0.5 + 0.4 * torch.sin(xx / f) * torch.cos(yy / (f + 3.0))
+    x = (x + 0.02 * torch.randn(x.shape, generator=gen, device=dev)).clamp(0, 1)
+    y = (x + 0.05 * torch.randn(x.shape, generator=gen, device=dev)).clamp(0, 1)
+    return x, y
+
+
+def iqa_metrics(model) -> None:
+    """Phase iqa_metrics: the eleven metrics on the card in true fp32 at
+    prep_fr's two sizes: identities on identical pairs, ms a batch in two
+    turns (CUDA events) and frames/s; then phase iqa_cpu_parity: the card
+    against the port's CPU path on a reduced seeded pair (176 x 184, the
+    least side MS-SSIM's five scales take) at the CPU tests' bars."""
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+
+    fns = iqa_fns(model)
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    with torch.no_grad():
+        for label, n, h, w in IQA_SIZES:
+            x, y = textured_pairs(n, h, w, gen)
+            identity, values = {}, {}
+            for name in IQA_METRICS:
+                same = fns[name](x, x).float()
+                identity[name] = same.tolist()
+                if name == "psnr":
+                    ok = bool((same > 100).all())
+                elif name in IQA_IS_ONE:
+                    ok = bool(((same - 1).abs() <= 1e-5).all())
+                else:
+                    ok = bool((same.abs() <= 1e-5).all())
+                got = fns[name](x, y).float()
+                values[name] = got.tolist()
+                if not (ok and got.shape == (n,) and bool(torch.isfinite(got).all())):
+                    raise AssertionError(f"{name} at {label}: identical pairs {identity[name]}, "
+                                         f"scores {values[name]}")
+            ms = {name: [] for name in IQA_METRICS}
+            for _ in range(2):  # turns: every metric once, then again
+                for name in IQA_METRICS:
+                    ms[name].append(time_ms(lambda: fns[name](x, y), iters=IQA_TIMED))
+            phase("iqa_metrics", size=label, batch=n, hw=[h, w], dtype="float32",
+                  identity=identity, scores=values, ms=ms,
+                  frames_per_s={k: [n / t * 1e3 for t in v] for k, v in ms.items()},
+                  batch_ms_all_metrics=[sum(v[i] for v in ms.values()) for i in range(2)])
+            del x, y
+        cpu_fns = iqa_fns(resolve_vgg_params(seed=0).eval())
+        xc, yc = textured_pairs(2, 176, 184, torch.Generator().manual_seed(22))
+        gaps = {}
+        for name in IQA_METRICS:
+            want = cpu_fns[name](xc, yc)
+            got = fns[name](xc.cuda(), yc.cuda()).cpu()
+            rtol = IQA_MAD_RTOL if name == "mad" else IQA_RTOL
+            gaps[name] = check_max(got, want, rtol, IQA_ATOL, f"{name} card vs CPU")
+    phase("iqa_cpu_parity", hw=[176, 184], batch=2, rtol=IQA_RTOL, atol=IQA_ATOL,
+          mad_rtol=IQA_MAD_RTOL, max_abs_gap=gaps)
+
+
+def _read_csv(path) -> list[dict]:
+    import csv
+
+    with open(path, newline="") as f:
+        return list(csv.DictReader(f))
+
+
+def prep_fr_iqa(tmp: str) -> str:
+    """Phase prep_fr_iqa: ``tools/prep_fr --iqa`` with all eleven metrics,
+    DISTS and ADISTS (the CLI's defaults: square policy, batch 8, bf16
+    pyramid; the metrics in true fp32) on a synthetic Test2 tree of eight
+    videos of eight 288 x 352 frames. Every column is present and finite,
+    the moments and T/S kernels launch 6 and 5 times a batch, and the wall
+    time a video is timed with and without the IQA columns in turns
+    (without, with, with, without) after an untimed run with them. Returns
+    the CSV."""
+    import io
+
+    from nerf_qa_torch.tools import prep_fr
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_fr_tree
+
+    data = f"{tmp}/prep_data"
+    scores = make_fr_tree(data, scenes=("lego", "ship", "truck", "room"),
+                          methods_per_scene=2, frames=8, hw=(288, 352), seed=3,
+                          dists_col=False)
+    text = io.StringIO()
+    seconds = {"with_iqa": [], "without_iqa": []}
+    counts = None
+    for turn, with_iqa in enumerate((True, False, True, True, False)):
+        out = f"{tmp}/prep_{turn}.csv"
+        argv = ["--data-dir", data, "--scores-csv", scores, "--output-csv", out]
+        if with_iqa:
+            argv += ["--iqa", ",".join(IQA_METRICS)]
+        reset_launches()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(text):
+            rc = prep_fr.main(argv)
+        torch.cuda.synchronize()
+        if turn:
+            seconds["with_iqa" if with_iqa else "without_iqa"].append(time.perf_counter() - t0)
+        if rc != 0:
+            raise AssertionError(f"prep_fr rc {rc}: {text.getvalue()[-2000:]}")
+        if with_iqa and counts is None:
+            counts, csv_path = launch_counts(), out
+    rows = _read_csv(csv_path)
+    batches = PREP_IQA_VIDEOS  # one batch of eight frames a video
+    bad = [f"{m}{s}" for m in ("DISTS", "ADISTS", *IQA_COLUMNS)
+           for s in ("", "_std", "_min", "_max")
+           if any(not math.isfinite(float(r.get(f"{m}{s}", "nan"))) for r in rows)]
+    if len(rows) != PREP_IQA_VIDEOS or bad or counts["moments"] != 6 * batches \
+            or counts["windowed_tsd"] != 5 * batches:
+        raise AssertionError(f"prep_fr --iqa: {len(rows)} rows, non-finite {bad}, "
+                             f"launches {counts}")
+    per_video = {k: [s / PREP_IQA_VIDEOS for s in v] for k, v in seconds.items()}
+    with_s, without_s = (statistics.mean(v) for v in per_video.values())
+    phase("prep_fr_iqa", videos=PREP_IQA_VIDEOS, frames=8, frame_hw=[288, 352],
+          policy="square", iqa=list(IQA_COLUMNS), launches=counts,
+          seconds_per_video=per_video, iqa_share_of_wall_time=1.0 - without_s / with_s)
+    return csv_path
+
+
+def results_tables(tmp: str, csv_path: str) -> None:
+    """Phase results_tables: ``tools/plot_results`` on prep_fr_iqa's CSV
+    (no --figures): every metric column has finite correlations over the
+    eight videos, and the LaTeX table is written."""
+    import io
+    import os
+
+    from nerf_qa_torch.tools import plot_results
+
+    out = f"{tmp}/analysis"
+    cols = ["DISTS", "ADISTS", *IQA_COLUMNS]
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = plot_results.main(["--results-csv", csv_path, "--metric-cols", *cols,
+                                "--output-dir", out])
+    table = {r["metric"]: r for r in _read_csv(f"{out}/correlations.csv")}
+    corr = {m: {k: float(table[m][f"combined_{k}"]) for k in ("plcc", "srcc", "ktcc")}
+            for m in cols if m in table}
+    tex = os.path.getsize(f"{out}/results_table.tex") if os.path.exists(
+        f"{out}/results_table.tex") else 0
+    if rc != 0 or set(corr) != set(cols) or tex == 0 or not all(
+            math.isfinite(v) for c in corr.values() for v in c.values()):
+        raise AssertionError(f"plot_results rc {rc}: {corr}, results_table.tex {tex} B")
+    phase("results_tables", metrics=cols, combined=corr, results_table_tex_bytes=tex)
+
+
+def golden_phase(tmp: str) -> None:
+    """Phase golden_check: ``compute_pair_score`` of two seeded 384 x 512
+    PNGs (PIL's bilinear resize to 256²) on the card, 6 moments launches,
+    against the port's CPU path (fp32, eager statistics); then the CLI with
+    --expect set to the CPU score exits 0."""
+    import io
+
+    from PIL import Image
+
+    from nerf_qa_torch.tools import golden_check
+
+    x, y = textured_pairs(1, 384, 512, torch.Generator().manual_seed(23))
+    paths = []
+    for name, img in (("r0.png", x), ("r1.png", y)):
+        paths.append(f"{tmp}/{name}")
+        Image.fromarray((img[0].numpy() * 255).round().astype(np.uint8)).save(paths[-1])
+    reset_launches()
+    card = golden_check.compute_pair_score(*paths)
+    counts = launch_counts()
+    cpu = golden_check.compute_pair_score(*paths, device="cpu")
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = golden_check.main(["--ref", paths[0], "--dist", paths[1], "--expect", repr(cpu)])
+    gap = abs(card - cpu)
+    if counts["moments"] != 6 or gap > GOLDEN_ATOL or rc != 0:
+        raise AssertionError(f"golden_check: card {card}, CPU {cpu}, launches {counts}, "
+                             f"CLI rc {rc}: {text.getvalue()}")
+    phase("golden_check", card_score=card, cpu_score=cpu, card_vs_cpu_gap=gap,
+          atol=GOLDEN_ATOL, launches=counts, cli_rc=rc)
+
+
+def retrieval_phase(model) -> None:
+    """Phase retrieval: an index of 64 seeded 256² images on the card (bf16
+    descriptors, the class's default), each image retrieving itself first;
+    ``pseudo_fr_score`` (bf16 matcher, fp32 DISTS) of eight shifted 256²
+    pairs, frames/s in two turns, equal to its chain of parts; and the
+    fp32 parts, card against the port's CPU path: the matcher's grid and
+    certainty, and the certainty-masked DISTS."""
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights, resolve_vgg_params
+    from nerf_qa_torch.config import DISTSConfig
+    from nerf_qa_torch.eval import retrieval
+
+    gen = torch.Generator().manual_seed(24)
+    # each image its own texture and colour cast
+    tint = 0.6 * torch.rand((RETRIEVAL_INDEX, 1, 1, 3), generator=gen) - 0.3
+    corpus = (textured_pairs(RETRIEVAL_INDEX, 256, 256, gen)[1] + tint).clamp(0, 1).numpy()
+    index = retrieval.ImageRetrieval(model)
+    t0 = time.perf_counter()
+    index.build_index(corpus, batch_size=16)
+    # queries in the index's batches: a bf16 image's features move with its
+    # position in a cuDNN batch (PERF.md §6)
+    found = [index.retrieve(corpus[lo:lo + 16], k=1) for lo in range(0, RETRIEVAL_INDEX, 16)]
+    top, sims = (np.concatenate(a) for a in zip(*found))
+    index_s = time.perf_counter() - t0
+    if not (top[:, 0] == np.arange(RETRIEVAL_INDEX)).all():
+        raise AssertionError(f"retrieval: top-1 {top[:, 0].tolist()}")
+
+    cfg = DISTSConfig()
+    w = resolve_dists_weights(cfg).to("cuda")
+    ref = textured_pairs(8, 256, 256, torch.Generator().manual_seed(25))[0].cuda()
+    render = textured_pairs(8, 256, 256, torch.Generator().manual_seed(25),
+                            shift=(3, 5))[0].cuda()
+    with torch.no_grad():
+        score = retrieval.pseudo_fr_score(model, w, render, ref, cfg)
+        grid, cert = retrieval.estimate_warp(model, render, ref)
+        chain = retrieval.masked_dists_score(model, w, render,
+                                             retrieval.warp_image(ref, grid), cert, cfg)
+        ms = [time_ms(lambda: retrieval.pseudo_fr_score(model, w, render, ref, cfg), iters=5)
+              for _ in range(2)]
+        if not bool(torch.isfinite(score).all()):
+            raise AssertionError(f"pseudo_fr_score {score.tolist()}")
+        chain_gap = check_max(score, chain, 0.0, SCORE_ATOL, "pseudo_fr_score vs its parts")
+        cpu_vgg = resolve_vgg_params(seed=0).eval()
+        r2, d2 = ref[:2].cpu(), render[:2].cpu()
+        cg, cc = retrieval.estimate_warp(cpu_vgg, d2, r2, compute_dtype=torch.float32)
+        kg, kc = retrieval.estimate_warp(model, d2.cuda(), r2.cuda(),
+                                         compute_dtype=torch.float32)
+        grid_gap = check_max(kg.cpu(), cg, 0.0, RETRIEVAL_GRID_ATOL, "matcher grid card vs CPU")
+        cert_gap = check_max(kc.cpu(), cc, IQA_RTOL, IQA_ATOL, "certainty card vs CPU")
+        warped = retrieval.warp_image(r2, cg)
+        want = retrieval.masked_dists_score(cpu_vgg, w.to("cpu"), d2, warped, cc, cfg)
+        got = retrieval.masked_dists_score(model, w, d2.cuda(), warped.cuda(), cc.cuda(), cfg)
+        score_gap = check_max(got.cpu(), want, IQA_RTOL, IQA_ATOL, "masked DISTS card vs CPU")
+    phase("retrieval", index=RETRIEVAL_INDEX, hw=[256, 256], index_and_retrieve_s=index_s,
+          top1_self=True, self_similarity_min=float(sims.min()),
+          pseudo_fr_scores=score.tolist(), chain_gap=chain_gap, pseudo_fr_ms_batch8=ms,
+          pseudo_fr_frames_per_s=[8 / t * 1e3 for t in ms],
+          fp32_card_vs_cpu={"grid_px": grid_gap, "certainty": cert_gap,
+                            "masked_dists": score_gap})
+
+
+def seeded_assets(root: str) -> None:
+    """Seeded checkpoints in the reference torch layouts (as the JAX
+    package's tests/test_verify_assets.py builds them): torchvision VGG16
+    ``features``, ``weights.pt``, an FR ``model.pth`` (linear head, α/β,
+    the VGG stages under ``dists_model.``), a DINOv2 ViT-S/14 (with its
+    CLS position), a FeatUp upsampler and a v8 NR decoder at depths 2 / 2."""
+    from nerf_qa_torch.compat.pretrained import resolve_vgg_params
+    from nerf_qa_torch.config import NRModelConfig
+    from nerf_qa_torch.core import dists
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.featup import JBUStack
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+    from nerf_qa_torch.models.nr.vit import ViTS14, init_vit_
+
+    stages = {k: v for k, v in resolve_vgg_params(seed=0).state_dict().items()
+              if k.startswith("stage") and not k.endswith("filter")}
+    torch.save({f"features.{k.split('.', 1)[1]}": v for k, v in stages.items()},
+               f"{root}/vgg16-397923af.pth")
+    w = dists.load_pretrained_weights()
+    ab = {"alpha": w.alpha.reshape(1, -1, 1, 1), "beta": w.beta.reshape(1, -1, 1, 1)}
+    torch.save(ab, f"{root}/weights.pt")
+    torch.save({"dists_weight": torch.tensor([-6.0]), "dists_bias": torch.tensor([5.0]),
+                **{f"dists_model.{k}": v for k, v in {**ab, **stages}.items()}},
+               f"{root}/model.pth")
+    vit = init_vit_(ViTS14(depth=12), torch.Generator().manual_seed(4)).state_dict()
+    vit["pos_embed"] = torch.cat([torch.zeros(1, 1, vit["pos_embed"].shape[-1]),
+                                  vit["pos_embed"]], dim=1)
+    torch.save(vit, f"{root}/dinov2_vits14_reg4.pth")
+    jbu = init_lecun_normal_(JBUStack(384), torch.Generator().manual_seed(5))
+    torch.save({f"upsampler.{k}": v for k, v in jbu.state_dict().items()},
+               f"{root}/featup_jbu.pth")
+    dec = init_lecun_normal_(NRDecoder(NRModelConfig(transformer_decoder_depth=2,
+                                                     refine_up_depth=2)),
+                             torch.Generator().manual_seed(6))
+    torch.save(dec.state_dict(), f"{root}/model_nr.pth")
+
+
+def verify_assets_phase(tmp: str) -> None:
+    """Phase verify_assets: ``tools/verify_assets --assets-dir`` over the
+    seeded checkpoints on the card: every check but the golden one (no demo
+    images) passes and the exit is 0; the JBU kernel launches 4 times an NR
+    forward (FeatUp's check: one, nr_model's: three) and the ChannelNorm
+    forward once a decoder ChannelNorm but the skipped last resample's
+    (12 at depths 1 / 1, 18 at 2 / 2); the moments kernel 6 times a DISTS,
+    FR or NR forward (5 + 10 + 4)."""
+    import io
+    import os
+    import re
+
+    from nerf_qa_torch.config import NRModelConfig
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import ChannelNorm
+    from nerf_qa_torch.tools import verify_assets
+
+    def cn_per_forward(trans, refine):
+        dec = NRDecoder(NRModelConfig(transformer_decoder_depth=trans, refine_up_depth=refine))
+        return sum(isinstance(m, ChannelNorm) for m in dec.modules()) - 1
+
+    root = f"{tmp}/assets"
+    os.makedirs(root)
+    seeded_assets(root)
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        rc = verify_assets.main(["--assets-dir", root])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    lines = {m.group(1): m.group(2) for m in re.finditer(
+        r"verify_assets: (\w+): (PASS|FAIL|SKIP) — (.*)", text.getvalue())}
+    want = {"jbu": 4 * (1 + 3), "channelnorm": cn_per_forward(1, 1) + 3 * cn_per_forward(2, 2),
+            "moments": 6 * (5 + 10 + 4)}
+    if rc != 0 or set(lines.values()) != {"PASS"} or len(lines) != 6 or any(
+            counts[k] != v for k, v in want.items()):
+        raise AssertionError(f"verify_assets rc {rc}, launches {counts} (expected {want}): "
+                             f"{text.getvalue()[-3000:]}")
+    phase("verify_assets", rc=rc, checks=lines, launches=counts, expected_launches=want,
+          seconds=seconds, report=text.getvalue().strip().splitlines())
+
+
+def sweep_phase(tmp: str) -> None:
+    """Phase sweep: ``tools/sweep --target fr --max-trials 3`` with the
+    bundled FR config (bayes, 10 epochs a trial, the logistic head) over a
+    synthetic tree of twelve videos, through run_fr with the stats cache on
+    the card: every trial returns its objective and the moments kernel
+    launches."""
+    import io
+
+    from nerf_qa_torch.tools import sweep
+    from nerf_qa_torch.tools.make_synthetic_dataset import make_fr_tree
+
+    data = f"{tmp}/sweep_data"
+    # no fabricated DISTS column: the logistic head is fitted to the
+    # random pyramid's real scores
+    scores = make_fr_tree(data, scenes=("lego", "truck", "ship", "fortress"),
+                          methods_per_scene=3, frames=4, hw=(288, 352), seed=4,
+                          dists_col=False)
+    config = Path(__file__).resolve().parent / "nerf_qa_torch/configs/sweep-fr-logistic.yaml"
+    reset_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as text:
+        hist = sweep.main(["--config", str(config), "--target", "fr",
+                           "--max-trials", str(SWEEP_TRIALS), "--output-dir", f"{tmp}/sweep",
+                           "--base-args", "--data-dir", data, "--scores-csv", scores,
+                           "--folds", "2", "--batch-size", "8", "--num-workers", "2",
+                           "--cache-stats"])
+    seconds = time.perf_counter() - t0
+    counts = launch_counts()
+    objectives = [h["objective"] for h in hist]
+    if len(hist) != SWEEP_TRIALS or counts["moments"] == 0 or not all(
+            v is not None and math.isfinite(v) for v in objectives):
+        raise AssertionError(f"sweep: objectives {objectives}, launches {counts}: "
+                             f"{text.getvalue()[-3000:]}")
+    phase("sweep", method=sweep.load_yaml(str(config))["method"], trials=SWEEP_TRIALS,
+          objectives=objectives, params=[h["params"] for h in hist], seconds=seconds,
+          launches=counts)
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3547,6 +3953,22 @@ def main() -> int:
         t0 = time.perf_counter()
         run()
         phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
+
+    # 12. the comparison and readiness tools: the IQA metrics at prep_fr's
+    # sizes, prep_fr --iqa with DISTS and ADISTS, the results tables,
+    # golden_check, retrieval, verify_assets and the sweep driver
+    with tempfile.TemporaryDirectory() as tmp:
+        prep_csv = []
+        for name, run in (("iqa_metrics", lambda: iqa_metrics(model)),
+                          ("prep_fr_iqa", lambda: prep_csv.append(prep_fr_iqa(tmp))),
+                          ("results_tables", lambda: results_tables(tmp, prep_csv[0])),
+                          ("golden_check", lambda: golden_phase(tmp)),
+                          ("retrieval", lambda: retrieval_phase(model)),
+                          ("verify_assets", lambda: verify_assets_phase(tmp)),
+                          ("sweep", lambda: sweep_phase(tmp))):
+            t0 = time.perf_counter()
+            run()
+            phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
 
     entries = [{
         "name": "moments",

@@ -15,7 +15,8 @@ The decoder mapping only moves, transposes and flips entries, so it maps
 any pytree shaped like the decoder's params (a gradient, optax Adam's
 ``mu`` and ``nu``) as it maps the weights: ``nr_decoder_tensors_from_jax``
 and ``adam_state_dict_from_jax``. ``fr_params_from_jax`` carries the FR
-head and α/β. It imports nothing of JAX: callers hand it numpy.
+head and α/β, ``lpips_lin_from_jax`` the five LPIPS ``lin`` vectors of
+``eval/iqa.py``. It imports nothing of JAX: callers hand it numpy.
 """
 from __future__ import annotations
 
@@ -77,6 +78,12 @@ def dists_weights_from_jax(alpha, beta) -> DISTSWeights:
     when the JAX side built them)."""
     return DISTSWeights(_t(np.asarray(alpha).reshape(-1)),
                         _t(np.asarray(beta).reshape(-1)))
+
+
+def lpips_lin_from_jax(lin_weights) -> list[torch.Tensor]:
+    """The JAX ``lin`` weights of ``eval.iqa.lpips`` / ``st_lpips`` (five
+    per-channel vectors, numpy) -> the port's list of (C_k,) tensors."""
+    return [_t(np.asarray(w).reshape(-1)) for w in lin_weights]
 
 
 def fr_params_from_jax(params: Mapping[str, Any]) -> dict[str, Any]:

@@ -1,16 +1,19 @@
 """Pretrained-backbone resolution for the port's entry points.
 
 Counterpart of ``nerf_qa_tpu/compat/pretrained.py``: the VGG16 pyramid,
-the DISTS α/β, the DINOv2 ViT and the FeatUp JBU upsampler, plus the
-reference-layout NR checkpoint. Resolution order:
+the DISTS α/β, the DINOv2 ViT, the FeatUp JBU upsampler and the LPIPS /
+ST-LPIPS ``lin`` weights, plus the reference-layout NR checkpoint.
+Resolution order:
 
 1. explicit CLI path (``--vgg-ckpt`` / ``--dists-weights`` /
    ``--vit-ckpt`` / ``--jbu-ckpt``);
 2. environment variable (``NERF_QA_VGG_CKPT``, ``NERF_QA_DISTS_WEIGHTS``,
-   ``NERF_QA_VIT_CKPT``, ``NERF_QA_JBU_CKPT``);
+   ``NERF_QA_VIT_CKPT``, ``NERF_QA_JBU_CKPT``, ``NERF_QA_LPIPS_CKPT``,
+   ``NERF_QA_STLPIPS_CKPT``);
 3. bundled asset (α/β only — converted from the reference's weights.pt);
 4. random weights with a loud warning (same FLOPs; quality numbers
-   meaningless), from a seeded ``torch.Generator``.
+   meaningless), from a seeded ``torch.Generator``; for the ``lin``
+   weights, None with a warning (the metric then weighs channels 1/C).
 
 The NR decoder and its α/β come from a reference-layout ``.pth`` or from a
 port training checkpoint (``load_nr_torch_file``).
@@ -51,6 +54,8 @@ ENV_VGG = "NERF_QA_VGG_CKPT"
 ENV_DISTS = "NERF_QA_DISTS_WEIGHTS"
 ENV_VIT = "NERF_QA_VIT_CKPT"
 ENV_JBU = "NERF_QA_JBU_CKPT"
+ENV_LPIPS = "NERF_QA_LPIPS_CKPT"
+ENV_STLPIPS = "NERF_QA_STLPIPS_CKPT"
 
 # key prefixes of the trained decoder in a reference NR state_dict
 NR_DECODER_PREFIXES = ("transformer_decoder.", "trans2sem.", "decoder.")
@@ -270,6 +275,45 @@ def resolve_jbu_params(path: str | None = None, dim: int = 384,
     _warn("no FeatUp checkpoint (--jbu-ckpt / $" + ENV_JBU + ") — the JBU "
           "semantic pyramid uses RANDOM weights.")
     return init_lecun_normal_(model, torch.Generator().manual_seed(seed))
+
+
+def lpips_lin_from_torch(state_dict: Mapping[str, Any]) -> list[torch.Tensor]:
+    """An official LPIPS / ST-LPIPS vgg checkpoint -> its five per-channel
+    ``lin`` weights, each (C_k,) fp32. The checkpoints store 1x1 convs of
+    shape (1, C_k, 1, 1) under ``lin{k}.model.1.weight`` (or
+    ``lins.{k}.model.1.weight``)."""
+    out = []
+    for k in range(5):
+        for key in (f"lin{k}.model.1.weight", f"lins.{k}.model.1.weight"):
+            if key in state_dict:
+                out.append(torch.as_tensor(state_dict[key]).detach().reshape(-1).float())
+                break
+        else:
+            raise KeyError(f"lpips lin{k} weight not found")
+    return out
+
+
+def resolve_lpips_weights(path: str | None = None) -> list[torch.Tensor] | None:
+    """LPIPS learned ``lin`` weights (``eval.iqa.lpips``); None -> the
+    uniform 1/C fallback inside ``lpips()``, with a warning here."""
+    path = path or os.environ.get(ENV_LPIPS)
+    if path:
+        return lpips_lin_from_torch(_torch_load(path))
+    _warn("no LPIPS checkpoint (--lpips-ckpt / $" + ENV_LPIPS + ") — LPIPS "
+          "uses uniform channel weights (uncalibrated).")
+    return None
+
+
+def resolve_stlpips_weights(path: str | None = None) -> list[torch.Tensor] | None:
+    """ST-LPIPS learned ``lin`` weights (``eval.iqa.st_lpips``). The
+    official ShiftTolerant-LPIPS vgg checkpoint stores its lin layers as
+    LPIPS does; None -> the uniform 1/C fallback, with a warning here."""
+    path = path or os.environ.get(ENV_STLPIPS)
+    if path:
+        return lpips_lin_from_torch(_torch_load(path))
+    _warn("no ST-LPIPS checkpoint (--stlpips-ckpt / $" + ENV_STLPIPS + ") "
+          "— ST-LPIPS uses uniform channel weights (uncalibrated).")
+    return None
 
 
 def _nr_checkpoint_file(path: str) -> str | None:

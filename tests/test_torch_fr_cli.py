@@ -218,13 +218,6 @@ def test_prep_fr_matches_jax(tree, policy, metrics):
                                        json.loads(w[f"{m}_frames"]), atol=PREP_ATOL)
 
 
-def test_prep_fr_iqa_exits_naming_roadmap(tree, tmp_path):
-    _, data, scores, _ = tree
-    with pytest.raises(SystemExit, match="Queue 1 item 12"):
-        tprep.main(["--data-dir", data, "--scores-csv", scores, "--iqa", "psnr",
-                    "--device", "cpu", "--output-csv", str(tmp_path / "x.csv")])
-
-
 def _reference_pth(path, np_params):
     """A reference FR model.pth (model_stats.py layout): a linear head, the
     fine-tuned α/β and the frozen VGG stages under dists_model.*"""

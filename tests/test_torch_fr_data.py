@@ -301,11 +301,11 @@ def test_prep_policies_match_jax(policy, hw):
 
 def test_no_port_module_imports_pandas_or_jax():
     # every module of the port, and chip_smoke.py, imported in a process
-    # where pandas, jax and the JAX package cannot be imported (the card's
-    # machine has none of them)
+    # where pandas, jax, the JAX package, matplotlib, yaml and wandb cannot
+    # be imported (the card's machine has none of them)
     code = """
 import importlib, pkgutil, sys
-for name in ("pandas", "jax", "nerf_qa_tpu"):
+for name in ("pandas", "jax", "nerf_qa_tpu", "matplotlib", "yaml", "wandb"):
     sys.modules[name] = None
 import nerf_qa_torch
 names = [m.name for m in pkgutil.walk_packages(nerf_qa_torch.__path__, "nerf_qa_torch.")]
@@ -326,3 +326,8 @@ print(" ".join(names))
             "nerf_qa_torch.tools.serve", "nerf_qa_torch.tools.convert_video",
             "nerf_qa_torch.tools.bench_feed",
             "nerf_qa_torch.tools.bench_host_decode"} <= set(names.split())
+    # the comparison and readiness tools
+    assert {"nerf_qa_torch.eval.iqa", "nerf_qa_torch.eval.retrieval",
+            "nerf_qa_torch.tools.golden_check", "nerf_qa_torch.tools.verify_assets",
+            "nerf_qa_torch.tools.plot_results", "nerf_qa_torch.tools.sweep",
+            "nerf_qa_torch.tools.init_sweep"} <= set(names.split())
