@@ -4,7 +4,7 @@ Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
 ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives eight paths at full width and
+plain PyTorch version on the card. It drives every path at full width and
 checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
@@ -81,7 +81,22 @@ checks that each went through its kernels:
   ``verify_assets`` over seeded checkpoints in the reference layouts, 4
   JBU and 18 ChannelNorm launches an NR v8 forward (``verify_assets``);
   and a three-trial bayes sweep of the bundled FR config through run_fr
-  (``sweep``).
+  (``sweep``);
+* many devices, each mesh made of copies of the one card ([cuda:0] × n
+  stands in for n GPUs): ``FrameScorer`` over a data mesh of two at batch
+  128 against the unsharded scorer, bf16 within the batch-position bound
+  and fp32 within 2e-5 (``parallel_scorer``); spatial DISTS and ADISTS of
+  two 1088 × 1920 pairs with H split 2 and 4 ways against the
+  single-device paths, each slab's moment sums and each block's T/S map
+  held to their plain versions (``spatial_dists``, ``spatial_adists``);
+  ``FRTrainer`` and ``NRTrainer`` (v8 both dtypes, v1) over the data mesh
+  against their unsharded steps (``parallel_train``); the scorer, spatial
+  DISTS and NRTrainer over [cuda:0, cpu], whose shards run on copies of
+  their own (``mixed_mesh``); a world of one over
+  NCCL and two processes sharing the card over gloo taking one
+  data-parallel FR step (``multiprocess``); the service's
+  --data-parallel and --spatial 2 against the direct scorers
+  (``serve_parallel``); and ``bench_op`` beside a bare event loop.
 
 It checks and times each kernel at its paths' shapes against its plain
 version, with its bound and a PyTorch yardstick (the ChannelNorm
@@ -314,16 +329,11 @@ def stats_float64_two_pass(fx: torch.Tensor, fy: torch.Tensor):
 
 
 def time_ms(fn, iters: int = 20) -> float:
-    fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    """ms per call of ``fn()`` over ``iters`` back-to-back calls after a
+    warm-up (``utils.benchtime.bench_op`` on the card)."""
+    from nerf_qa_torch.utils.benchtime import bench_op
+
+    return 1e3 * bench_op(lambda _: fn(), torch.empty(0, device="cuda"), iters)
 
 
 def moments_bound(shape, itemsize: int) -> tuple[float, str]:
@@ -1679,6 +1689,22 @@ def grad_gaps(got: dict, want: dict) -> dict[str, float]:
             for n in want}
 
 
+# a decoder gradient under this share of the decoder's largest is not
+# resolved per tensor: a conv bias in front of a training-mode BatchNorm has
+# a true gradient of 0 (the batch statistics remove any per-channel shift),
+# so two reduction orders give noise there (tests/torch_nr_versions.py)
+RESOLVED = 1e-2
+
+
+def resolved_grad_gaps(got: dict, want: dict) -> dict[str, float]:
+    """grad_gaps with each tensor's scale floored at RESOLVED of the
+    largest |want| of all: unchanged for every resolved tensor, and the
+    smallest resolved tensor's scale for the rest."""
+    floor = RESOLVED * max(float(w.abs().max()) for w in want.values())
+    return {n: float((got[n] - want[n]).abs().max()) / max(float(want[n].abs().max()), floor)
+            for n in want}
+
+
 def nr_backbones():
     """The seeded random full-width encoder parts shared by the NR phases:
     bf16 DISTS α/β, ViT-S/14 depth 12 and the JBU stack."""
@@ -2174,8 +2200,8 @@ def unbiased_batchnorm():
 
     real = layers.BatchNorm.forward
 
-    def forward(self, x):
-        real(self, x)  # the running averages move as flax moves them
+    def forward(self, x, shard=None):
+        real(self, x, shard)  # the running averages move as flax moves them
         xf = x.float()
         mean, var = xf.mean(dim=(0, 2, 3)), xf.var(dim=(0, 2, 3))
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -2487,16 +2513,17 @@ def fr_batch(gen, n: int, hw: int):
     return dist, ref, (5.0 - 12.0 * sigma + jitter).clamp(1, 5)
 
 
-def make_fr_trainer(vgg, dtype: str, stats_impl: str, device=None):
+def make_fr_trainer(vgg, dtype: str, stats_impl: str, device=None, mesh=None):
     """FRTrainer with the CLI's logistic head and the bundled α/β, Adam at
-    FR_LR with the CLI's warm-up and exponential schedule."""
+    FR_LR with the CLI's warm-up and exponential schedule (over ``mesh``
+    when given)."""
     from nerf_qa_torch.config import DISTSConfig, FRModelConfig, TrainConfig
     from nerf_qa_torch.train.fr_train import FRTrainer
 
     cfg = FRModelConfig(regression_type="logistic",
                         dists=DISTSConfig(compute_dtype=dtype, stats_impl=stats_impl))
     return FRTrainer(vgg, cfg, TrainConfig(lr=FR_LR, batch_size=FR_BATCH),
-                     steps_per_epoch=FR_STEPS_PER_EPOCH, device=device)
+                     steps_per_epoch=FR_STEPS_PER_EPOCH, device=device, mesh=mesh)
 
 
 def fr_grads(trainer, params, dist, ref, targets) -> tuple[float, dict]:
@@ -3699,6 +3726,752 @@ def sweep_phase(tmp: str) -> None:
           launches=counts)
 
 
+# -- many devices: the mesh, data parallelism, spatial sharding and
+# processes --------------------------------------------------------------------
+
+# the frames of parallel_scorer (drawn apart from the bound's, below)
+PARALLEL_SEED = 22
+# the bf16 bound of a frame's DISTS score between batch 128 and batch 64
+# (cuDNN picks its bf16 conv kernels by batch size): the largest gap over
+# 8 batches of 128 seeded 1080p pairs at 256², probes/cudnn_numerics.py
+# (PERF.md §6). parallel_scorer splits 128 into two 64s: it holds its
+# sharded scores bit-equal to the unsharded scorer on each half, and to
+# the unsharded batch of 128 within this bound
+DP_BF16_BOUND = 4.953145980834961e-05
+DP_FP32_TOL = {"dists": 2e-5, "adists": 1e-4}  # tests/test_spatial_sharding.py's bars
+SPATIAL_HW = (1088, 1920)  # 1080p padded to split over 4 · 16
+SPATIAL_PAIRS = 2
+SPATIAL_MODEL = (2, 4)
+DP_SHARDS = 2  # the card's data mesh: [cuda:0] * 2
+DP_NR_BATCH = 4
+# (version, dtype, dropout) of parallel_train's NR steps
+DP_NR_CASES = ((8, "bfloat16", 0.2), (8, "float32", 0.2), (1, "float32", 0.0))
+DP_FR_BATCH = 32
+SERVE_PARALLEL_FRAMES = 2
+
+
+def cuda_mesh(n: int, model_parallel: int = 1):
+    """A mesh of ``n`` copies of the card (the card's stand-in for n GPUs)."""
+    from nerf_qa_torch.parallel.mesh import create_mesh
+
+    return create_mesh([torch.device("cuda", 0)] * n, model_parallel=model_parallel)
+
+
+def seeded_frames(gen, n: int, hw=FRAME_HW):
+    d = torch.randint(0, 256, (n, *hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    r = torch.randint(0, 256, (n, *hw, 3), generator=gen, device="cuda", dtype=torch.uint8)
+    return d, r
+
+
+def peak_gib() -> float:
+    return torch.cuda.max_memory_allocated() / 2**30
+
+
+def parallel_scorer(model, weights) -> dict[str, int]:
+    """Phase parallel_scorer: FrameScorer over a [cuda:0] × 2 data mesh at
+    batch 128 of uint8 1080p pairs resized to 256², bf16 and fp32 (moments
+    kernel), against the unsharded scorer: 6 moments launches a shard;
+    bit-equal to the unsharded scorer on each half (the batch each shard
+    sees); against the unsharded batch of 128, bf16 within DP_BF16_BOUND
+    and fp32 within 2e-5; frames/s of each in turns."""
+    from nerf_qa_torch.config import DISTSConfig, true_fp32
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+
+    gen = torch.Generator(device="cuda").manual_seed(PARALLEL_SEED)
+    d, r = seeded_frames(gen, BATCH)
+    mesh = cuda_mesh(DP_SHARDS)
+    rows, counts = {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for dtype in ("bfloat16", "float32"):
+        cfg = DISTSConfig(compute_dtype=dtype, stats_impl="kernel")
+        single = FrameScorer(model, weights, cfg)
+        sharded = FrameScorer(model, weights, cfg, mesh=mesh)
+        precision = true_fp32 if dtype == "float32" else contextlib.nullcontext
+        with precision():
+            sharded.score_batch(d, r)  # warm-up
+            torch.cuda.synchronize()
+            reset_launches()
+            s_sh = sharded.score_batch(d, r)
+            counts[dtype] = launch_counts()
+            s_un = single.score_batch(d, r)
+            half = BATCH // DP_SHARDS
+            halves = torch.cat([single.score_batch(d[i:i + half], r[i:i + half])
+                                for i in range(0, BATCH, half)])
+        gap = float((s_sh - s_un).abs().max())
+        bar = DP_BF16_BOUND if dtype == "bfloat16" else DP_FP32_TOL["dists"]
+        halves_equal = bool(torch.equal(s_sh, halves))
+        if (counts[dtype]["moments"] != 6 * DP_SHARDS or not halves_equal or gap > bar
+                or not bool(torch.isfinite(s_sh).all())):
+            raise AssertionError(f"parallel_scorer {dtype}: launches {counts[dtype]}, "
+                                 f"bit-equal halves {halves_equal}, gap {gap} (bar {bar})")
+        fps = {"unsharded": [], "sharded": []}
+        for name, sc in (("unsharded", single), ("sharded", sharded),
+                         ("sharded", sharded), ("unsharded", single)):
+            with precision():
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                for _ in range(3):
+                    sc.score_batch(d, r)
+                end.record()
+                end.synchronize()
+            fps[name].append(3 * BATCH / (start.elapsed_time(end) / 1e3))
+        rows[dtype] = dict(launches=counts[dtype], max_gap=gap, bar=bar,
+                           bit_equal_to_unsharded_halves=halves_equal,
+                           frames_per_s=fps)
+    phase("parallel_scorer", mesh="[cuda:0] x 2 (data)", batch=BATCH,
+          frame_hw=list(FRAME_HW), seed=PARALLEL_SEED, **rows, peak_mem_gib=peak_gib())
+    return counts["bfloat16"]
+
+
+class SlabCheck:
+    """Patch ``parallel.spatial``'s kernel wrappers inside the block so
+    that every call (a slab's moment sums, a block's T/S map) is also held
+    against its plain version on the same inputs; the comparisons launch
+    nothing."""
+
+    def __init__(self):
+        self.moments: list[float] = []
+        self.tsd: list[float] = []
+        self.shapes: dict[str, list] = {"moments": [], "tsd": []}
+        self.tsd_calls: list[tuple] = []  # each block's T/S arguments
+
+    def __enter__(self):
+        from nerf_qa_torch.ops.cuda import moments, windowed_tsd
+        from nerf_qa_torch.parallel import spatial
+
+        self._real = (spatial.moment_sums, spatial.windowed_tsd)
+
+        def moment_sums(fx, fy):
+            got = moments.moment_sums(fx, fy)
+            hw = fx.shape[1] * fx.shape[2]
+            self.moments.append(check_close(
+                moments.stats_from_sums(got, hw),
+                moments.stats_from_sums(moments.moment_sums_plain(fx, fy), hw),
+                RTOL, ATOL, f"slab moments {tuple(fx.shape)} vs plain"))
+            self.shapes["moments"].append(list(fx.shape))
+            return got
+
+        def tsd(fx, fy, ps, w, ws, inv_x=None, inv_y=None):
+            got = windowed_tsd.windowed_tsd(fx, fy, ps, w, ws, inv_x=inv_x, inv_y=inv_y)
+            want = windowed_tsd.windowed_tsd_plain(fx, fy, ps, w, ws, inv_x, inv_y)
+            self.tsd.append(tsd_check(got, want, f"block T/S {tuple(fx.shape)}"))
+            self.shapes["tsd"].append(list(fx.shape))
+            self.tsd_calls.append((fx, fy, ps, w, ws, inv_x, inv_y))
+            return got
+
+        spatial.moment_sums, spatial.windowed_tsd = moment_sums, tsd
+        return self
+
+    def __exit__(self, *exc):
+        from nerf_qa_torch.parallel import spatial
+
+        spatial.moment_sums, spatial.windowed_tsd = self._real
+
+
+def spatial_pairs(gen):
+    d, r = seeded_frames(gen, SPATIAL_PAIRS, SPATIAL_HW)
+    return d.float() / 255.0, r.float() / 255.0
+
+
+def spatial_dists_phase(model, weights) -> dict[str, int]:
+    """Phase spatial_dists: two pairs at 1088 × 1920, H split 2 and 4 ways
+    ([cuda:0] × model axis): fp32 and bf16 against the single-device
+    full-resolution path (fp32 within 2e-5), 6 moments launches a slab,
+    every slab's sums held to the plain sums on the same slab, ms per
+    batch and peak memory."""
+    from nerf_qa_torch.config import DISTSConfig, true_fp32
+    from nerf_qa_torch.core import dists
+    from nerf_qa_torch.parallel.mesh import replicate
+    from nerf_qa_torch.parallel.spatial import spatial_dists_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, y = spatial_pairs(gen)
+    w = weights.to("cuda")
+    rows, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = DISTSConfig(compute_dtype=dtype, stats_impl="kernel")
+        precision = true_fp32 if dtype == "float32" else contextlib.nullcontext
+        with torch.no_grad(), precision():
+            want = dists.forward(model, w, x, y, cfg)
+            for mp in SPATIAL_MODEL:
+                mesh = cuda_mesh(mp, mp)
+                models = replicate(mesh, model)
+                spatial_dists_forward(models, w, x, y, mesh, cfg)  # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                got = spatial_dists_forward(models, w, x, y, mesh, cfg)
+                counts = launch_counts()
+                peak = peak_gib()
+                with SlabCheck() as check:
+                    again = spatial_dists_forward(models, w, x, y, mesh, cfg)
+                gap = float((got - want).abs().max())
+                bad = (counts["moments"] != 6 * mp or len(check.moments) != 6 * mp
+                       or not torch.equal(got, again) or not bool(torch.isfinite(got).all())
+                       or (dtype == "float32" and gap > DP_FP32_TOL["dists"]))
+                if bad:
+                    raise AssertionError(f"spatial DISTS {dtype} model {mp}: gap {gap}, "
+                                         f"launches {counts}, slab checks "
+                                         f"{len(check.moments)}")
+                ms = time_ms(lambda: spatial_dists_forward(models, w, x, y, mesh, cfg), 3)
+                rows[f"{dtype} model {mp}"] = dict(
+                    scores=got.tolist(), single_device=want.tolist(), max_gap=gap,
+                    moments_launches=counts["moments"],
+                    slab_moments_max_abs_err=max(check.moments),
+                    slab_shapes=check.shapes["moments"][:6], ms_per_batch=ms,
+                    peak_mem_gib=peak)
+                launches[f"{dtype} model {mp}"] = counts["moments"]
+            rows[f"{dtype} single device ms"] = time_ms(
+                lambda: dists.forward(model, w, x, y, cfg), 3)
+    phase("spatial_dists", pairs=SPATIAL_PAIRS, frame_hw=list(SPATIAL_HW),
+          fp32_tol=DP_FP32_TOL["dists"], **rows)
+    return launches
+
+
+def spatial_adists_phase(model) -> dict[str, int]:
+    """Phase spatial_adists: ADISTS of the same two 1088 × 1920 pairs with
+    H split 2 and 4 ways, scores and ``as_map``, fp32 and bf16, against the
+    single-device forward (fp32 within 1e-4): one T/S launch per windowed
+    stage (all six at this size) per channel block, every block's map held
+    to the plain map on the same block, the T/S kernel's ms on each block,
+    ms per batch and peak memory."""
+    from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.core import adists
+    from nerf_qa_torch.ops.cuda import windowed_tsd
+    from nerf_qa_torch.parallel.mesh import replicate
+    from nerf_qa_torch.parallel.spatial import spatial_adists_forward
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    x, y = spatial_pairs(gen)
+    rows, launches = {}, {}
+    for dtype in ("float32", "bfloat16"):
+        cfg = ADISTSConfig(compute_dtype=dtype)
+        with torch.no_grad():
+            want = adists.forward(model, x, y, cfg, as_loss=False)
+            want_map = adists.forward(model, x, y, cfg, as_map=True)
+            for mp in SPATIAL_MODEL:
+                mesh = cuda_mesh(mp, mp)
+                models = replicate(mesh, model)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                reset_launches()
+                got = spatial_adists_forward(models, x, y, mesh, cfg, as_loss=False)
+                counts = launch_counts()
+                peak = peak_gib()
+                with SlabCheck() as check:
+                    got_map = spatial_adists_forward(models, x, y, mesh, cfg, as_map=True)
+                gap = float((got - want).abs().max())
+                map_gap = float((got_map - want_map).abs().max())
+                bad = (counts["windowed_tsd"] != 6 * mp or len(check.tsd) != 6 * mp
+                       or not bool(torch.isfinite(got).all())
+                       or (dtype == "float32" and max(gap, map_gap) > DP_FP32_TOL["adists"]))
+                if bad:
+                    raise AssertionError(f"spatial ADISTS {dtype} model {mp}: gaps {gap} "
+                                         f"{map_gap}, launches {counts}, block checks "
+                                         f"{len(check.tsd)}")
+                ms = time_ms(lambda: spatial_adists_forward(models, x, y, mesh, cfg,
+                                                            as_loss=False), 2)
+                # the T/S kernel per block (stage 0's blocks hold one
+                # channel at model 4, one of them all padding)
+                block_ms = [[list(a[0].shape), time_ms(
+                    lambda a=a: windowed_tsd.windowed_tsd(*a[:5], inv_x=a[5], inv_y=a[6]),
+                    5)] for a in check.tsd_calls[:6 * mp]]
+                del check.tsd_calls
+                rows[f"{dtype} model {mp}"] = dict(
+                    scores=got.tolist(), single_device=want.tolist(), max_gap=gap,
+                    map_max_gap=map_gap, tsd_launches=counts["windowed_tsd"],
+                    block_tsd_max_abs_err=max(check.tsd), tsd_ms_per_block=block_ms,
+                    ms_per_batch=ms, peak_mem_gib=peak)
+                launches[f"{dtype} model {mp}"] = counts["windowed_tsd"]
+            rows[f"{dtype} single device ms"] = time_ms(
+                lambda: adists.forward(model, x, y, cfg, as_loss=False), 2)
+    phase("spatial_adists", pairs=SPATIAL_PAIRS, frame_hw=list(SPATIAL_HW),
+          fp32_tol=DP_FP32_TOL["adists"], **rows)
+    return launches
+
+
+@contextlib.contextmanager
+def dp_compare_mode(dtype: str, run: str):
+    """The convolutions of parallel_train's compared NR steps: cuDNN's
+    deterministic algorithms, except that fp32 steps run without cuDNN
+    (PyTorch's own GEMM convolutions) unless ``run`` ends in "_cudnn".
+    cuDNN picks its fp32 algorithms by batch size, and between batch 4
+    and its halves they differ by ~1e-4 of the largest decoder gradient
+    (the "_cudnn" pair, reported beside), as large as the bar; the
+    comparison is of the sharding, so both sides take one algorithm."""
+    if dtype == "float32" and not run.endswith("_cudnn"):
+        with torch.backends.cudnn.flags(enabled=False):
+            yield
+        return
+    with deterministic_convs():
+        yield
+
+
+def captured_step(trainer, *batch) -> tuple[dict, dict]:
+    """One NR training step's losses and the decoder gradients the
+    optimizer received."""
+    grads = {}
+
+    def keep(opt, args, kwargs):
+        for n, p in trainer.model.decoder.named_parameters():
+            grads[n] = torch.zeros_like(p) if p.grad is None else p.grad.clone()
+
+    handle = trainer.optimizer.register_step_pre_hook(keep)
+    try:
+        losses = trainer.train_step(*batch)
+    finally:
+        handle.remove()
+    return {k: float(v) for k, v in losses.items()}, grads
+
+
+def parallel_train(vgg) -> dict[str, dict]:
+    """Phase parallel_train: the trainers over a [cuda:0] × 2 data mesh
+    against their unsharded steps from identical weights. FRTrainer at
+    batch 32 (fp32 and bf16 pyramids, the logistic head): the image step's
+    loss and head and α/β gradients (fp32 at fr_train_path's bars, 1e-5 /
+    1e-4; bf16 at the NR training bars, 1e-4 / 5e-2, the pyramid's bits
+    moving with its batch), the cached step's loss, 6 moments launches a
+    shard. NRTrainer's gt step at batch 4 at full width (DP_NR_CASES: v8
+    bf16, and v8 with fp32 VGG and decoder, dropout 0.2; v1, a BatchNorm
+    generation, fp32, no dropout, its running averages within 1e-4), the
+    same generator state, the compared steps in one convolution algorithm
+    (``dp_compare_mode``): losses within 1e-5 (fp32) / 1e-4 (bf16), each
+    decoder gradient within 1e-4 / 5e-2 of its largest
+    (``resolved_grad_gaps``: of RESOLVED of the decoder's largest where
+    the tensor's own is smaller, v1's conv biases before BatchNorms), v1's
+    within the v1-v6 bars on the card, VERSION_GRAD_RTOL per tensor and
+    VERSION_GRAD_L2 as a whole (its fp32 gradient moves by about 1e-2 of a
+    tensor when the batch's rows are merely permuted: the ``permuted``
+    control, beside the unsharded step's own repeat and the cuDNN pair).
+    Those bars must catch a planted fault, every run: v1's sharded step
+    with the BatchNorm sums' gradient cut between shards
+    (``own_rows_only``), which must fail them. The JBU and ChannelNorm
+    launches once per shard. Pairs/s and frames/s, sharded and
+    unsharded."""
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig, TrainConfig
+    from nerf_qa_torch.models.nr.decoder import NRDecoder
+    from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+    from nerf_qa_torch.models.nr.model import NRModel
+    from nerf_qa_torch.parallel.mesh import ShardGroup
+    from nerf_qa_torch.train.nr_train import NRTrainer
+
+    real_sum = ShardGroup.sum
+
+    def own_rows_only(self, index, t):
+        # the planted fault: the global sums' values, with a gradient that
+        # reaches only the shard's own rows
+        return t + (real_sum(self, index, t) - t).detach()
+
+    gen = torch.Generator(device="cuda").manual_seed(41)
+    mesh = cuda_mesh(DP_SHARDS)
+    out, launches = {}, {}
+    dist, ref, targets = fr_batch(gen, DP_FR_BATCH, 256)
+    init_x = np.linspace(0.02, 0.3, 8)
+    init_y = 1 + 4 / (1 + np.exp((init_x - 0.15) / 0.04))
+    for dtype in FR_DTYPES:
+        single = make_fr_trainer(vgg, dtype, "kernel")
+        sharded = make_fr_trainer(vgg, dtype, "kernel", mesh=mesh)
+        params, _ = single.init(init_x, init_y)
+        with true_fp32_if(getattr(torch, dtype)):
+            reset_launches()
+            loss_s, grads_s = fr_grads(sharded, params, dist, ref, targets)
+            counts_s = launch_counts()["moments"]
+            reset_launches()
+            loss_u, grads_u = fr_grads(single, params, dist, ref, targets)
+            counts_u = launch_counts()["moments"]
+            cache = single.pair_stats(dist, ref).transpose(0, 1)
+            cached = [float(tr.train_step_cached(tr.to_device(params),
+                                                 tr.optimizer.init(tr.to_device(params)),
+                                                 cache, targets)[2])
+                      for tr in (single, sharded)]
+        loss_gap = abs(loss_s - loss_u)
+        gaps = fr_grad_gaps(grads_s, grads_u)
+        worst = max(gaps, key=gaps.get)
+        bars = ((FR_PLAIN_LOSS_ATOL[dtype], FR_PLAIN_GRAD_RTOL[dtype]) if dtype == "float32"
+                else (TRAIN_PLAIN_LOSS_ATOL[dtype], TRAIN_PLAIN_GRAD_RTOL[dtype]))
+        if (counts_s != 6 * DP_SHARDS or counts_u != 6 or loss_gap > bars[0]
+                or gaps[worst] > bars[1] or abs(cached[0] - cached[1]) > bars[0]):
+            raise AssertionError(f"FR {dtype} sharded vs unsharded: loss {loss_gap}, "
+                                 f"gradient {worst} {gaps[worst]}, cached {cached}, "
+                                 f"launches {counts_s} / {counts_u}")
+        rates = {}
+        for name, tr in (("unsharded", single), ("sharded", sharded), ("sharded", sharded),
+                         ("unsharded", single)):
+            p = tr.to_device(params)
+            opt = tr.optimizer.init(p)
+            with true_fp32_if(getattr(torch, dtype)):
+                tr.train_step(p, opt, dist, ref, targets)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    p, opt, _, _ = tr.train_step(p, opt, dist, ref, targets)
+                torch.cuda.synchronize()
+            rates.setdefault(name, []).append(3 * DP_FR_BATCH / (time.perf_counter() - t0))
+        out[f"fr {dtype}"] = dict(loss_gap=loss_gap, worst_grad=[worst, gaps[worst]],
+                                  cached_loss_gap=abs(cached[0] - cached[1]), bars=bars,
+                                  moments_launches={"sharded": counts_s,
+                                                    "unsharded": counts_u},
+                                  pairs_per_s=rates)
+        launches[f"fr {dtype}"] = counts_s
+        del single, sharded
+
+    weights, vit, jbu = nr_backbones()
+    batch = train_batch(gen, DP_NR_BATCH)
+    # bf16: the CLI's default (bf16 VGG and decoder); fp32: the parity path
+    # (fp32 VGG and decoder). A bf16 VGG's features move by an ulp with
+    # their batch (cuDNN, PERF.md §6), which an fp32 decoder's first stage
+    # would show as a gradient gap of its own. v1 runs without dropout, so
+    # that the same step on the batch's rows permuted is the same function:
+    # its gap shows what reduction order alone does to v1's gradient
+    for version, dtype, rate in DP_NR_CASES:
+        cfg = NRModelConfig(version=version, decoder_dtype=dtype, dropout_rate=rate,
+                            dists=DISTSConfig(compute_dtype=dtype))
+        runs = [("unsharded", None, batch), ("sharded", mesh, batch)]
+        if version < 7:
+            perm = torch.tensor([2, 3, 0, 1], device="cuda")
+            runs += [("again", None, batch),
+                     ("permuted", None, tuple(t[perm] for t in batch)),
+                     ("fault_own_rows_only", mesh, batch)]
+        elif dtype == "float32":
+            runs += [("unsharded_cudnn", None, batch), ("sharded_cudnn", mesh, batch)]
+        # one decoder, drawn once as NRTrainer.init draws it, copied into
+        # every run
+        decoder = init_lecun_normal_(
+            NRDecoder(cfg, sem_dim=vit.embed_dim, qkv_bias=True, layer_scale=True),
+            torch.Generator().manual_seed(0))
+        res = {}
+        for name, m, args in runs:
+            model = NRModel(vgg, weights, cfg, vit=vit, jbu=jbu if version >= 7 else None,
+                            decoder=copy.deepcopy(decoder))
+            trainer = NRTrainer(model, TrainConfig(lr=TRAIN_LR, schedule="constant",
+                                                   batch_size=DP_NR_BATCH),
+                                steps_per_epoch=1, mesh=m)
+            trainer.set_decoder(model.decoder)
+            reset_launches()
+            planted = contextlib.nullcontext()
+            if name.startswith("fault"):
+                planted = _restoring(ShardGroup, "sum", real_sum)
+                ShardGroup.sum = own_rows_only
+            with planted, dp_compare_mode(dtype, name):
+                losses, grads = captured_step(trainer, *args)
+            counts = launch_counts()
+            state = {k: v.clone() for k, v in model.decoder.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            fps = None
+            if name in ("unsharded", "sharded"):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(3):
+                    trainer.train_step(*args)
+                torch.cuda.synchronize()
+                fps = 3 * DP_NR_BATCH / (time.perf_counter() - t0)
+            res[name] = (losses, grads, state, counts, fps, trainer.generator.get_state())
+            del trainer, model
+        (lu, gu, su, cu, fu, genu), (ls, gs, ss, cs_, fs, gens) = (res["unsharded"],
+                                                                  res["sharded"])
+        loss_gap = max(abs(ls[k] - lu[k]) for k in lu)
+        gaps = resolved_grad_gaps(gs, gu)
+        worst = max(gaps, key=gaps.get)
+        top = max(float(g.abs().max()) for g in gu.values())
+        of_largest = max(float((gs[k] - gu[k]).abs().max()) for k in gu) / top
+        stats_gap = max([float((ss[k] - su[k]).abs().max())
+                         / max(float(su[k].abs().max()), 1e-12) for k in su] or [0.0])
+        bars = (TRAIN_PLAIN_LOSS_ATOL[dtype],
+                TRAIN_PLAIN_GRAD_RTOL[dtype] if version >= 7 else VERSION_GRAD_RTOL)
+        grad_l2 = rel_l2(gs, gu)
+        controls = {name: [max(resolved_grad_gaps(res[name][1], gu).values()),
+                           rel_l2(res[name][1], gu)]
+                    for name in ("again", "permuted", "fault_own_rows_only") if name in res}
+        fault_caught = ("fault_own_rows_only" not in controls
+                        or controls["fault_own_rows_only"][0] > bars[1]
+                        or controls["fault_own_rows_only"][1] > VERSION_GRAD_L2)
+        if "sharded_cudnn" in res:
+            a, b = res["sharded_cudnn"][1], res["unsharded_cudnn"][1]
+            controls["cudnn_deterministic_of_largest"] = max(
+                float((a[k] - b[k]).abs().max()) for k in b) / max(
+                float(g.abs().max()) for g in b.values())
+        row = dict(loss_gap=loss_gap, grad_gap_of_largest=of_largest,
+                   worst_grad=[worst, gaps[worst]], grad_l2=grad_l2, bars=bars,
+                   controls_worst_grad_and_l2=controls, fault_caught=fault_caught,
+                   batchnorm_stats_rel_gap=stats_gap if su else None,
+                   launches={"unsharded": cu, "sharded": cs_},
+                   frames_per_s={"unsharded": fu, "sharded": fs})
+        out[f"nr v{version} {dtype}"] = row
+        ok = (loss_gap <= bars[0] and gaps[worst] <= bars[1] and torch.equal(genu, gens)
+              and (version >= 7 or grad_l2 <= VERSION_GRAD_L2) and fault_caught
+              and (version >= 7) == (not su) and stats_gap <= 1e-4
+              and all(cs_[k] == cu[k] * DP_SHARDS
+                      for k in ("jbu", "channelnorm", "channelnorm_bwd")))
+        if not ok:
+            phase("parallel_train_failed", **out)
+            raise AssertionError(f"NR v{version} {dtype} sharded vs unsharded: {row}")
+        launches[f"nr v{version} {dtype}"] = cs_
+    phase("parallel_train", mesh="[cuda:0] x 2 (data)", fr_batch=DP_FR_BATCH,
+          nr_batch=DP_NR_BATCH, **out)
+    return launches
+
+
+def mixed_mesh() -> None:
+    """Phase mixed_mesh: meshes of two distinct devices, [cuda:0, cpu], so
+    that every shard's model and weights are copies on their own device and
+    the cross-device paths run: FrameScorer (fp32, 4 uint8 90 × 120 pairs
+    → 64²), spatial DISTS (2 pairs at 64 × 48, the CPU's slab below the
+    card's), and NRTrainer v1 (BatchNorm sums across the two devices) and
+    v8 (dropout 0.2) at 64² / 56², batch 4, each against the card alone at
+    the card-against-CPU bars: scores and losses SCORE_ATOL, decoder
+    gradients TRAIN_CPU_GRAD_RTOL for v8 and VERSION_GRAD_RTOL and
+    VERSION_GRAD_L2 for v1 (``resolved_grad_gaps``, ``rel_l2``); the
+    model copies made by ``replicate``; the card's shard launches its kernels, the
+    CPU's their plain versions."""
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights, resolve_vgg_params
+    from nerf_qa_torch.config import DISTSConfig, NRModelConfig, TrainConfig, true_fp32
+    from nerf_qa_torch.core import dists
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+    from nerf_qa_torch.ops.resize import resize_bilinear
+    from nerf_qa_torch.parallel.mesh import create_mesh, replicate
+    from nerf_qa_torch.parallel.spatial import spatial_dists_forward
+    from nerf_qa_torch.train.nr_train import NRTrainer
+
+    gen = torch.Generator(device="cuda").manual_seed(51)
+    mesh = create_mesh(["cuda:0", "cpu"])
+    cfg = DISTSConfig(stats_impl="kernel")
+    weights = resolve_dists_weights(cfg)
+    vgg = resolve_vgg_params(seed=0)
+    d, r = (t.cpu() for t in seeded_frames(gen, 4, (90, 120)))
+    card = FrameScorer(vgg, weights, cfg, resize_to=(64, 64)).score_frames(d, r, 4)
+    reset_launches()
+    mixed = FrameScorer(vgg, weights, cfg, resize_to=(64, 64), mesh=mesh).score_frames(
+        d, r, 4)
+    out = {"scorer": dict(gap=float(abs(mixed - card).max()),
+                          moments_launches=launch_counts()["moments"])}
+    x = torch.rand((2, 64, 48, 3), generator=gen, device="cuda")
+    y = (x + 0.05 * torch.randn(x.shape, generator=gen, device="cuda")).clamp(0, 1)
+    w = weights.to("cuda")
+    with torch.no_grad(), true_fp32():
+        want = dists.forward(vgg, w, x, y, cfg)
+        reset_launches()
+        smesh = create_mesh(["cuda:0", "cpu"], 2)
+        got = spatial_dists_forward(replicate(smesh, vgg), w, x, y, smesh, cfg)
+    out["spatial"] = dict(gap=float((got - want).abs().max()),
+                          moments_launches=launch_counts()["moments"])
+    ok = (out["scorer"]["gap"] <= SCORE_ATOL and out["scorer"]["moments_launches"] == 6
+          and out["spatial"]["gap"] <= SCORE_ATOL and out["spatial"]["moments_launches"] == 6)
+    gt = torch.rand((4, 64, 64, 3), generator=gen, device="cuda")
+    render = (gt + 0.05 * torch.randn(gt.shape, generator=gen, device="cuda")).clamp(0, 1)
+    batch = (gt, render, resize_bilinear(render, 56, 56))
+    for version in (1, 8):
+        model = small_nr(NRModelConfig(version=version, transformer_decoder_depth=1,
+                                       decoder_dtype="float32",
+                                       dists=DISTSConfig(compute_dtype="float32")))
+        res = {}
+        for name, m in (("card", None), ("mixed", mesh)):
+            trainer = NRTrainer(copy.deepcopy(model), TrainConfig(
+                lr=1e-3, schedule="constant", batch_size=4), steps_per_epoch=1, mesh=m)
+            trainer.init(seed=0)
+            reset_launches()
+            losses, grads = captured_step(trainer, *batch)
+            state = {k: v.clone() for k, v in trainer.model.decoder.state_dict().items()
+                     if k.endswith(("running_mean", "running_var"))}
+            res[name] = (losses, {k: g.cpu() for k, g in grads.items()}, state,
+                         launch_counts(), trainer.generator.get_state(),
+                         sorted(str(dv) for dv, m in (trainer._replicas or {}).items()
+                                if m is not trainer.model))
+        (cl, cg, cs_, cc, cgen, _), (ml, mg, ms, mc, mgen, copies) = res["card"], res["mixed"]
+        gaps = resolved_grad_gaps(mg, cg)
+        worst = max(gaps, key=gaps.get)
+        stats_gap = max([float((ms[k] - cs_[k]).abs().max())
+                         / max(float(cs_[k].abs().max()), 1e-12) for k in cs_] or [0.0])
+        row = dict(loss_gap=max(abs(ml[k] - cl[k]) for k in cl),
+                   worst_grad=[worst, gaps[worst]], grad_l2=rel_l2(mg, cg),
+                   batchnorm_stats_rel_gap=stats_gap,
+                   copies=copies, launches={"card": cc, "mixed": mc},
+                   same_generator=bool(torch.equal(cgen, mgen)))
+        out[f"nr v{version}"] = row
+        bar = TRAIN_CPU_GRAD_RTOL if version >= 7 else VERSION_GRAD_RTOL
+        row["grad_bar"] = bar
+        ok = ok and (row["loss_gap"] <= SCORE_ATOL and gaps[worst] <= bar
+                     and (version >= 7 or row["grad_l2"] <= VERSION_GRAD_L2)
+                     and stats_gap <= TRAIN_CPU_GRAD_RTOL and copies == ["cpu"]
+                     and row["same_generator"]
+                     and mc == cc)  # the card's shard runs the kernels, the CPU's none
+    phase("mixed_mesh", mesh="[cuda:0, cpu]", **out)
+    if not ok:
+        raise AssertionError(f"mixed mesh: {out}")
+
+
+class worker_run:
+    """tests/torch_multihost_worker.py started as ``n`` processes of one
+    world on the card; ``wait()`` returns their outputs (each must exit
+    0) and stops every process it started."""
+
+    def __init__(self, n: int, **env):
+        import socket
+
+        root = Path(__file__).resolve().parent
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            port = s.getsockname()[1]
+        base = dict(os.environ, COORDINATOR_ADDRESS=f"127.0.0.1:{port}",
+                    NUM_PROCESSES=str(n), WORKER_DEVICE="cuda:0", PYTHONPATH=str(root),
+                    **env)
+        self.procs = [subprocess.Popen(
+            [sys.executable, str(root / "tests" / "torch_multihost_worker.py")],
+            env=dict(base, PROCESS_ID=str(i)), cwd=root, stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True) for i in range(n)]
+
+    def wait(self) -> list[str]:
+        outs = []
+        try:
+            for p in self.procs:
+                outs.append(p.communicate(timeout=300)[0])
+        finally:
+            for p in self.procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        if any(p.returncode != 0 for p in self.procs):
+            raise AssertionError(f"worker rcs {[p.returncode for p in self.procs]}: "
+                                 + " | ".join(o[-1500:] for o in outs))
+        return outs
+
+
+def multiprocess() -> None:
+    """Phase multiprocess: ``maybe_initialize`` forms a world of one over
+    NCCL on the card and takes the FR step there; then two processes share
+    the card over gloo (LOCAL_WORLD_SIZE=2: NCCL allows one rank a card)
+    and take one data-parallel FR step through HostShardedSampler: their
+    shards are disjoint and cover the set, and both end with bit-identical
+    parameters. The three processes run at once."""
+    def lines(out, tag):
+        return [line for line in out.splitlines() if line.startswith(tag)]
+
+    t0 = time.perf_counter()
+    one_world, two_world = worker_run(1), worker_run(2, LOCAL_WORLD_SIZE="2")
+    try:
+        one = one_world.wait()[0]
+    finally:
+        outs = two_world.wait()
+    seconds = time.perf_counter() - t0
+    if lines(one, "BACKEND") != ["BACKEND nccl 1"]:
+        raise AssertionError(f"world of one: {one[-1500:]}")
+    shards = [json.loads(lines(o, f"SHARD {i} ")[0].split(" ", 2)[2])
+              for i, o in enumerate(outs)]
+    p0, p1 = lines(outs[0], "PARAMS"), lines(outs[1], "PARAMS")
+    ok = (all(lines(o, "BACKEND") == ["BACKEND gloo 2"] for o in outs)
+          and set(shards[0]).isdisjoint(shards[1])
+          and sorted(shards[0] + shards[1]) == [0, 1, 2, 3]
+          and lines(outs[0], "LOSS") == lines(outs[1], "LOSS") and p0 and p0 == p1)
+    if not ok:
+        raise AssertionError(f"two processes: {outs[0][-1500:]} | {outs[1][-1500:]}")
+    loss_one = float(lines(one, "LOSS")[0].split()[1])
+    loss_two = float(lines(outs[0], "LOSS")[0].split()[1])
+    phase("multiprocess", world_of_one="nccl", two_processes="gloo on cuda:0",
+          seconds_both_at_once=seconds, shards=shards,
+          params_bit_identical=True, loss_world_of_one=loss_one, loss_two_processes=loss_two,
+          params=p0)
+
+
+def serve_parallel(model) -> dict[str, dict]:
+    """Phase serve_parallel: ``tools.serve`` with --data-parallel and with
+    --spatial 2 --full-size (fp32, --metric both, batch 4), its mesh built
+    from ``local_devices`` standing in as [cuda:0] × 2, on three requests
+    of two 1088 × 1920 PNG pairs: each response against the scorers
+    called directly on the same frames (DISTS within 2e-5, ADISTS 1e-4),
+    and the kernels' launches."""
+    from nerf_qa_torch.compat.pretrained import resolve_dists_weights
+    from nerf_qa_torch.config import ADISTSConfig, DISTSConfig, true_fp32
+    from nerf_qa_torch.eval.video_scorer import FrameScorer
+    from nerf_qa_torch.parallel import mesh as meshlib
+    from nerf_qa_torch.tools import score, serve
+
+    rng = np.random.default_rng(13)
+    weights = resolve_dists_weights(DISTSConfig())
+    direct = FrameScorer(model, weights, DISTSConfig(stats_impl="kernel"), resize_to=None)
+    acfg = ADISTSConfig()
+    rows = {}
+    real = meshlib.local_devices
+    meshlib.local_devices = lambda: [torch.device("cuda", 0)] * DP_SHARDS
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            root = Path(tmp)
+            reqs = []
+            for k in range(3):
+                ref = video_u8(rng, SERVE_PARALLEL_FRAMES, SPATIAL_HW, base_shift=0.05 * k)
+                dist = np.clip(ref.astype(np.int16) + rng.integers(-15, 16, ref.shape),
+                               0, 255).astype(np.uint8)
+                reqs.append({"id": k, "ref": write_video(root, f"r{k}", ref, False),
+                             "dist": write_video(root, f"d{k}", dist, False)})
+            for flags in (["--data-parallel"], ["--spatial", "2"]):
+                args = serve.build_parser().parse_args(
+                    ["--stdio", "--fp32", "--metric", "both", "--batch-size", "4",
+                     "--full-size", "--no-warmup", *flags])
+                svc = serve.ScoringService(args, model, weights)
+                try:
+                    reset_launches()
+                    t0 = time.perf_counter()
+                    resp = [svc.handle(q) for q in reqs]
+                    secs = time.perf_counter() - t0
+                    counts = launch_counts()
+                    steps = {k: b.device_steps for k, b in svc.batchers.items()}
+                finally:
+                    svc.close()
+                gaps = {"dists": 0.0, "adists": 0.0}
+                for r, q in zip(resp, reqs):
+                    if "error" in r:
+                        raise AssertionError(f"serve {flags}: {r}")
+                    d = score._load_frames(q["dist"], False, False)
+                    f = score._load_frames(q["ref"], False, False)
+                    with true_fp32():
+                        wd = direct.score_frames(d, f, 4)
+                        wa = score.adists_batch(model, d, f, acfg).cpu().numpy()
+                    gaps["dists"] = max(gaps["dists"], _gap(r["dists_frames"], wd))
+                    gaps["adists"] = max(gaps["adists"], _gap(r["adists_frames"], wa))
+                if any(gaps[k] > DP_FP32_TOL[k] for k in gaps):
+                    raise AssertionError(f"serve {flags} vs direct: {gaps}")
+                rows[" ".join(flags)] = dict(seconds=secs, gaps=gaps, launches=counts,
+                                             device_steps=steps,
+                                             dists=[r["dists"] for r in resp])
+    finally:
+        meshlib.local_devices = real
+    phase("serve_parallel", devices="[cuda:0] x 2", frame_hw=list(SPATIAL_HW),
+          requests=3, frames_per_request=SERVE_PARALLEL_FRAMES, **rows)
+    return rows
+
+
+def bench_op_phase(gen) -> None:
+    """Phase bench_op: the moments kernel at the FR path's stage shapes
+    (batch 128, bf16) timed by ``utils.benchtime.bench_op`` (what
+    ``time_ms`` calls: each run's output feeds a device scalar) and by a
+    bare CUDA-event loop of the same calls, in turns."""
+    from nerf_qa_torch.ops.cuda import moments
+    from nerf_qa_torch.utils.benchtime import bench_op
+
+    rows = []
+    for (h, w), c in zip(STAGE_HW, STAGE_C):
+        fx, fy = feature_pair((BATCH, h, w, c), torch.bfloat16, gen)
+
+        def bare(iters=20):
+            moments.moment_sums(fx, fy)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                moments.moment_sums(fx, fy)
+            end.record()
+            end.synchronize()
+            return start.elapsed_time(end) / iters
+
+        op = lambda v: moments.moment_sums(v, fy)  # noqa: E731
+        rows.append({"shape": [BATCH, h, w, c],
+                     "bench_op_ms": [1e3 * bench_op(op, fx), 1e3 * bench_op(op, fx)],
+                     "bare_loop_ms": [bare(), bare()]})
+        del fx, fy
+    phase("bench_op", kernel="moments", dtype="bfloat16", rows=rows,
+          bench_op_total_ms=sum(min(r["bench_op_ms"]) for r in rows),
+          bare_loop_total_ms=sum(min(r["bare_loop_ms"]) for r in rows))
+
+
 def main() -> int:
     # 1. device
     if not torch.cuda.is_available():
@@ -3969,6 +4742,23 @@ def main() -> int:
             t0 = time.perf_counter()
             run()
             phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
+
+    # 13. many devices on the one card ([cuda:0] × n stands in for n GPUs):
+    # the data-parallel scorer, spatial DISTS and ADISTS at 1088 × 1920,
+    # the data-parallel trainers, processes over NCCL and gloo, the
+    # service's --data-parallel and --spatial, and bench_op's figure
+    for name, run in (("parallel_scorer", lambda: parallel_scorer(model, weights)),
+                      ("spatial_dists", lambda: spatial_dists_phase(model, weights)),
+                      ("spatial_adists", lambda: spatial_adists_phase(model)),
+                      ("parallel_train", lambda: parallel_train(model)),
+                      ("mixed_mesh", mixed_mesh),
+                      ("multiprocess", multiprocess),
+                      ("serve_parallel", lambda: serve_parallel(model)),
+                      ("bench_op", lambda: bench_op_phase(gen))):
+        t0 = time.perf_counter()
+        run()
+        phase("timing_of_phase", which=name, seconds=time.perf_counter() - t0)
+        torch.cuda.empty_cache()
 
     entries = [{
         "name": "moments",

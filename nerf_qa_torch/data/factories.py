@@ -84,14 +84,21 @@ def create_nerf_qa_resize_dataloader(rows: Sequence[Mapping], dir: str,
 def create_nr_dataloader(rows: Sequence[Mapping], dir: str, mode: str = "gt",
                          is_train: bool = False,
                          batch_size: int = DEVICE_BATCH_SIZE_NR,
-                         num_workers: int = 4, seed: int = 0, **aug) -> DataLoader:
+                         num_workers: int = 4, seed: int = 0,
+                         host_sharded: bool = False, **aug) -> DataLoader:
     """Batches in the sampler's order (the JAX package's for the same
     seed). With ``num_workers=0`` the augmentations draw from one
     Generator seeded with ``seed``, as the JAX loader's do; with workers,
-    each worker reseeds it from the loader's ``seed``-seeded generator."""
+    each worker reseeds it from the loader's ``seed``-seeded generator.
+    ``host_sharded``: this process's slice of the order
+    (``parallel.distributed.HostShardedSampler``)."""
     dataset = NerfNRQADataset(rows, dir=dir, mode=mode, is_train=is_train,
                               rng=np.random.default_rng(seed), **aug)
     sampler = SceneBalancedSampler(dataset.get_scene_indices(), seed)
+    if host_sharded:
+        from nerf_qa_torch.parallel.distributed import HostShardedSampler
+
+        sampler = HostShardedSampler(sampler)
     return _loader(dataset, batch_size, sampler, num_workers, seed)
 
 

@@ -4,7 +4,8 @@ Counterpart of ``nerf_qa_tpu/data/samplers.py``, the part the NR trainer
 uses: ``SceneBalancedSampler`` (data.py:407-427) — every epoch draws
 min-scene-count indices per scene, shuffled — with an explicit numpy
 Generator seeded by (seed, epoch), so the same seed gives the JAX
-package's order.
+package's order; and ``host_shard``, a process's slice of an index stream
+(``parallel/distributed.HostShardedSampler``).
 """
 from __future__ import annotations
 
@@ -38,3 +39,9 @@ class SceneBalancedSampler:
             picked.extend(indices[perm].tolist())
         picked = np.asarray(picked)
         yield from picked[rng.permutation(len(picked))].tolist()
+
+
+def host_shard(indices: Sequence[int], host_id: int, host_count: int) -> list[int]:
+    """Deterministic per-process slice of a sampler's index stream (the
+    multi-host input sharding in SURVEY §5.8's design)."""
+    return list(indices)[host_id::host_count]

@@ -9,6 +9,12 @@ the 1/255 scale folded in (bf16 matmuls on the serving path) -> VGG
 pyramid -> statistics (eager, or the fused CUDA moments kernel) ->
 per-frame scores. Tail frames are padded, never dropped, and masked out:
 a video's score is the mean of exactly its real frames.
+
+Over a mesh (``parallel/mesh.py``) each data shard scores its rows on its
+device and the scores return in frame order: the moments kernel launches
+six times a shard. ``spatial=True`` is the full-resolution mode: frame
+height split over the mesh's model axis as well
+(``parallel/spatial.spatial_dists_forward``, six launches a slab).
 """
 from __future__ import annotations
 
@@ -22,9 +28,7 @@ from nerf_qa_torch.config import DISTSConfig, resolve_device, true_fp32
 from nerf_qa_torch.core import dists
 from nerf_qa_torch.core.vgg import VGG16Pyramid
 from nerf_qa_torch.ops.resize import resize_bilinear, resize_bilinear_aa
-
-_PARALLEL_TODO = ("multi-device scoring is not yet ported (ROADMAP Queue 1 "
-                  "item 14, parallel/)")
+from nerf_qa_torch.parallel import mesh as meshlib
 
 
 def _prep(frames: torch.Tensor, out_hw: tuple[int, int] | None,
@@ -44,12 +48,6 @@ def _prep(frames: torch.Tensor, out_hw: tuple[int, int] | None,
     return x * scale if scale != 1.0 else x
 
 
-def _pad_tail(a, pad: int):
-    if isinstance(a, torch.Tensor):
-        return torch.cat([a, a[-1:].expand(pad, *a.shape[1:])])
-    return np.concatenate([a, np.repeat(a[-1:], pad, 0)])
-
-
 def batched_map(fn, arrays, batch_size: int) -> np.ndarray:
     """Run ``fn(*slices) -> (batch_size,)`` over equal-length arrays (numpy
     or torch) in fixed-shape batches, padding the tail by repeating the
@@ -60,13 +58,13 @@ def batched_map(fn, arrays, batch_size: int) -> np.ndarray:
         hi = min(lo + batch_size, n)
         sl = [a[lo:hi] for a in arrays]
         if hi - lo < batch_size:
-            sl = [_pad_tail(a, batch_size - (hi - lo)) for a in sl]
+            sl = [meshlib.pad_tail(a, batch_size - (hi - lo)) for a in sl]
         out[lo:hi] = np.asarray(fn(*sl))[: hi - lo]
     return out
 
 
 class FrameScorer:
-    """DISTS frame scorer on one device.
+    """DISTS frame scorer on one device or over a mesh.
 
     Args:
       model: the VGG16 pyramid (``compat.pretrained.resolve_vgg_params``).
@@ -79,8 +77,15 @@ class FrameScorer:
         resolution (full-size mode).
       antialias: resize with the antialiased bilinear resizer
         (``ops.resize.resize_bilinear_aa``) instead of the plain one.
-      mesh, spatial: multi-device scoring; not yet ported.
-      device: where to run; None means the card, and raises without one.
+      mesh: a ``parallel.mesh.Mesh``: batches split over its data axis,
+        each shard scored on its device (batch sizes rounded up to a
+        multiple of the data axis by ``score_frames``).
+      spatial: additionally split frame HEIGHT over the mesh's model axis
+        (``parallel.spatial``): the full-resolution mode. Needs ``mesh``
+        and ``resize_to=None``; frames need H % (model axis · 16) == 0 and
+        W % 16 == 0.
+      device: where to run without a mesh; None means the card, and raises
+        without one. With a mesh, scores gather on its first device.
     """
 
     def __init__(
@@ -95,33 +100,64 @@ class FrameScorer:
         spatial: bool = False,
         device: str | torch.device | None = None,
     ):
-        if mesh is not None or spatial:
-            raise NotImplementedError(_PARALLEL_TODO)
-        self.device = resolve_device(device)
+        if spatial:
+            if mesh is None:
+                raise ValueError("spatial=True requires a mesh")
+            if resize_to is not None:
+                raise ValueError(
+                    "spatial=True is the full-resolution mode; use "
+                    "resize_to=None (resize would cross device slabs)")
+        self.mesh = mesh
+        self.spatial = spatial
+        self.device = mesh.primary if mesh is not None else resolve_device(device)
         self.model = model.to(self.device).eval()
         self.weights = weights.to(self.device)
         self.cfg = cfg
         self.resize_to = resize_to
         self.antialias = antialias
+        if mesh is not None:
+            self._models = meshlib.replicate(mesh, self.model)
+            self._weights = meshlib.replicate(mesh, self.weights)
 
     def score_batch(self, dist_frames, ref_frames) -> torch.Tensor:
         """Per-frame scores (a device tensor) for one batch; numpy arrays
         and tensors on any device are accepted."""
         fast = self.cfg.compute_dtype == "bfloat16"
-        d = torch.as_tensor(dist_frames).to(self.device, non_blocking=True)
-        r = torch.as_tensor(ref_frames).to(self.device, non_blocking=True)
         # the fp32 path resizes and convolves in true fp32 (no TF32)
         precision = contextlib.nullcontext() if fast else true_fp32()
         with torch.no_grad(), precision:
-            x = _prep(d, self.resize_to, fast, self.antialias)
-            y = _prep(r, self.resize_to, fast, self.antialias)
-            return dists.forward(self.model, self.weights, x, y, self.cfg)
+            if self.mesh is None:
+                return self._score(self.model, self.weights, self.device,
+                                   dist_frames, ref_frames, fast)
+            if self.spatial:
+                from nerf_qa_torch.parallel.spatial import spatial_dists_forward
+
+                x = _prep(meshlib.to_device(dist_frames, self.device), None)
+                y = _prep(meshlib.to_device(ref_frames, self.device), None)
+                return spatial_dists_forward(self._models, self.weights, x, y,
+                                             self.mesh, self.cfg)
+            shards = meshlib.shard_batch(self.mesh, (dist_frames, ref_frames))
+            return torch.cat([
+                self._score(self._models[dev], self._weights[dev], dev, d, r,
+                            fast).to(self.device)
+                for dev, (d, r) in zip(self.mesh.data_devices, shards)])
+
+    def _score(self, model, weights, device, dist_frames, ref_frames,
+               fast: bool) -> torch.Tensor:
+        d = meshlib.to_device(dist_frames, device)
+        r = meshlib.to_device(ref_frames, device)
+        x = _prep(d, self.resize_to, fast, self.antialias)
+        y = _prep(r, self.resize_to, fast, self.antialias)
+        return dists.forward(model, weights, x, y, self.cfg)
 
     def score_frames(self, dist_frames, ref_frames,
                      batch_size: int = 32) -> np.ndarray:
         """Score N frame pairs, padding the tail batch (masked out)."""
         if ref_frames.shape[0] != dist_frames.shape[0]:
             raise ValueError("frame count mismatch")
+        if self.mesh is not None:
+            batch_size = meshlib.pad_to_multiple(
+                batch_size, self.mesh.shape[meshlib.DATA_AXIS])
         return batched_map(
             lambda d, r: self.score_batch(d, r).cpu().numpy(),
             (dist_frames, ref_frames), batch_size)

@@ -64,6 +64,7 @@ from nerf_qa_torch.models.nr.layers import (
     ConvLayer,
     ConvTransposeLayer,
     TransformerBlock,
+    generator_at,
     nchw,
     nhwc,
 )
@@ -418,8 +419,7 @@ class NRDecoder(nn.Module):
         def run(fm, df, sf):
             g = generator
             if calls and generator is not None:  # the backward's recomputation
-                g = torch.Generator(device=generator.device)
-                g.set_state(start)
+                g = generator_at(generator, start)
             calls.append(1)
             return stage(fm, df, sf, g, resample)
 

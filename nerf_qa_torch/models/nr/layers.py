@@ -17,6 +17,12 @@ The v1-v6 blocks take ``norm_type="batch"``: BatchNorm then ReLU
 running_var, num_batches_tracked}``. Its statistics follow flax's
 ``nn.BatchNorm``, as the JAX package does (:class:`BatchNorm`).
 
+Data-parallel training (``train/nr_train.NRTrainer(mesh=...)``) keeps the
+unsharded step's semantics: each shard passes a ``parallel.mesh.Shard`` in
+place of the generator, whose dropout draws are the global batch's mask
+at its rows and whose BatchNorm statistics are the global batch's (sums
+over every shard of the step), as JAX's sharded batch statistics are.
+
 Layout: the conv layers take and return NCHW tensors, kept in
 ``channels_last`` memory by the decoder, so the ChannelNorm sees each map
 as contiguous NHWC rows without a copy. The 2x transposed convs go
@@ -44,6 +50,7 @@ from nerf_qa_torch.ops.cuda.channelnorm import (
     channel_norm_act_plain,
 )
 from nerf_qa_torch.ops.subpixel import conv_transpose_2x, conv_transpose_2x_subpixel
+from nerf_qa_torch.parallel.mesh import Shard
 
 
 class ChannelNorm(nn.Module):
@@ -76,13 +83,24 @@ class ChannelNorm(nn.Module):
         return y.permute(0, 3, 1, 2)
 
 
+def generator_at(generator, state: torch.Tensor):
+    """A new generator of ``generator``'s kind (a ``torch.Generator`` or a
+    ``parallel.mesh.Shard``) at ``state``: the replay of its draws."""
+    if isinstance(generator, Shard):
+        return generator.at(state)
+    g = torch.Generator(device=generator.device)
+    g.set_state(state)
+    return g
+
+
 class Dropout2d(nn.Module):
     """Channel dropout (torch Dropout2d semantics, layers.py:104-116):
     whole channels per sample are zeroed and the kept values scaled by
     1/keep. The mask is drawn from the explicit ``generator`` the caller
-    passes (on the map's device), never from torch's global RNG; with no
-    generator, in eval mode or at rate 0 it is the identity (the JAX
-    module's ``deterministic``)."""
+    passes (on the map's device), never from torch's global RNG, or from
+    a data-parallel step's ``Shard`` (its rows of the global batch's
+    mask); with no generator, in eval mode or at rate 0 it is the identity
+    (the JAX module's ``deterministic``)."""
 
     def __init__(self, rate: float):
         super().__init__()
@@ -94,8 +112,11 @@ class Dropout2d(nn.Module):
         if self.rate == 0.0 or generator is None or not self.training:
             return x
         keep = 1.0 - self.rate
-        u = torch.rand((x.shape[0], x.shape[1], 1, 1), generator=generator,
-                       device=x.device)
+        shape = (x.shape[0], x.shape[1], 1, 1)
+        if isinstance(generator, Shard):
+            u = generator.rand(shape, x.device)
+        else:
+            u = torch.rand(shape, generator=generator, device=x.device)
         return torch.where(u < keep, x / keep, torch.zeros((), dtype=x.dtype,
                                                            device=x.device))
 
@@ -121,22 +142,30 @@ class BatchNorm(nn.BatchNorm2d):
       averages update; in eval mode the running averages normalise.
 
     The output is ``(x − mean)·rsqrt(var + eps)·weight + bias`` in fp32,
-    cast to ``dtype`` (flax's ``dtype``)."""
+    cast to ``dtype`` (flax's ``dtype``).
+
+    Given the ``shard`` of a data-parallel step (``parallel.mesh.Shard``)
+    the batch statistics are the global batch's (``Shard.batch_stats``),
+    and only shard 0 moves the running averages."""
 
     def __init__(self, features: int, dtype: torch.dtype = torch.float32):
         super().__init__(features, eps=1e-5, momentum=0.01)
         self.dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, shard: Shard | None = None) -> torch.Tensor:
         xf = x.float()
         if self.training:
-            mean = xf.mean(dim=(0, 2, 3))
-            var = ((xf * xf).mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
-            with torch.no_grad():
-                m = 1.0 - self.momentum
-                self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
-                self.running_var.copy_(m * self.running_var + self.momentum * var)
-                self.num_batches_tracked += 1
+            if shard is None:
+                mean = xf.mean(dim=(0, 2, 3))
+                var = ((xf * xf).mean(dim=(0, 2, 3)) - mean.square()).clamp_min(0.0)
+            else:
+                mean, var = shard.batch_stats(xf)
+            if shard is None or shard.index == 0:
+                with torch.no_grad():
+                    m = 1.0 - self.momentum
+                    self.running_mean.copy_(m * self.running_mean + self.momentum * mean)
+                    self.running_var.copy_(m * self.running_var + self.momentum * var)
+                    self.num_batches_tracked += 1
         else:
             mean, var = self.running_mean, self.running_var
         mul = torch.rsqrt(var + self.eps) * self.weight
@@ -155,12 +184,13 @@ def _norm_layer(norm_type: str, features: int, dtype: torch.dtype) -> nn.Module:
 class _ConvBlock(nn.Module):
     """Dropout2d -> conv -> norm (+activation): ChannelNorm with its exact
     GELU fused (``norm_type='channel'``, v7/v8), or BatchNorm then ReLU
-    (``'batch'``, v1-v6)."""
+    (``'batch'``, v1-v6). Its ``generator`` is the dropout generator or
+    the ``Shard`` of a data-parallel step, which the BatchNorm takes too."""
 
-    def _norm(self, x: torch.Tensor) -> torch.Tensor:
+    def _norm(self, x: torch.Tensor, generator) -> torch.Tensor:
         if isinstance(self.norm_layer, ChannelNorm):
             return self.norm_layer(x, gelu=self.activation)
-        x = self.norm_layer(x)
+        x = self.norm_layer(x, generator if isinstance(generator, Shard) else None)
         return torch.relu(x) if self.activation else x
 
 
@@ -183,7 +213,7 @@ class ConvLayer(_ConvBlock):
         x = self.dropout(x.to(self.dtype), generator)
         x = F.conv2d(x, self.conv.weight.to(self.dtype),
                      self.conv.bias.to(self.dtype), padding=1)
-        return self._norm(x)
+        return self._norm(x, generator)
 
 
 class ConvTransposeLayer(_ConvBlock):
@@ -209,7 +239,7 @@ class ConvTransposeLayer(_ConvBlock):
         x = self.dropout(x.to(self.dtype), generator)
         x = conv_transpose_2x(x, self.conv.weight.to(self.dtype),
                               self.conv.bias.to(self.dtype))
-        return self._norm(x)
+        return self._norm(x, generator)
 
 
 class SubpixelConvTranspose(nn.ConvTranspose2d):

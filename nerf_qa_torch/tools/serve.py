@@ -41,8 +41,13 @@ Response:        {"id", "frames": N, "dists": mean, "dists_frames": [...]}
   {"id", "frames", "nr", "nr_frames"} for no-reference requests, or
   {"id", "error": msg} for malformed requests (the service stays up).
 
---data-parallel and --spatial (multi-device scoring) raise: they wait for
-ROADMAP Queue 1 item 14.
+--data-parallel splits DISTS and ADISTS request batches over every
+visible GPU (a ``parallel.mesh`` data mesh, batches rounded up to a
+multiple of the device count); NR requests run on the first device.
+--spatial N additionally splits frame HEIGHT N ways for full-resolution
+scoring (``--full-size``), DISTS and ADISTS (``parallel/spatial.py``:
+halo-exchanged pyramid, per-slab moments, channel-blocked ADISTS
+statistics); frames need H % (16·N) == 0 and W % 16 == 0.
 
 Example:
   python -m nerf_qa_torch.tools.serve --stdio --metric dists <<'EOF'
@@ -63,7 +68,9 @@ import torch
 
 from nerf_qa_torch.compat import pretrained
 from nerf_qa_torch.config import ADISTSConfig, DISTSConfig, resolve_device
-from nerf_qa_torch.eval.video_scorer import _PARALLEL_TODO, FrameScorer
+from nerf_qa_torch.eval.video_scorer import FrameScorer, _prep
+from nerf_qa_torch.parallel import mesh as meshlib
+from nerf_qa_torch.parallel.spatial import spatial_adists_forward
 from nerf_qa_torch.tools.score import (
     NRScorer,
     _load_frames,
@@ -215,15 +222,28 @@ class FrameBatcher:
 
 
 class ScoringService:
-    """Warm-pipeline scorer for (dist, ref) path requests on one device."""
+    """Warm-pipeline scorer for (dist, ref) path requests, on one device or
+    over a mesh of the local GPUs (--data-parallel, --spatial N)."""
 
     def __init__(self, args, model, dists_weights):
-        if getattr(args, "data_parallel", False) or getattr(args, "spatial", 0):
-            raise NotImplementedError(_PARALLEL_TODO)
         dtype = "float32" if args.fp32 else "bfloat16"
         self.args = args
-        self.device = resolve_device(getattr(args, "device", None))
+        mesh = None
+        spatial = int(getattr(args, "spatial", 0) or 0)
+        if spatial or getattr(args, "data_parallel", False):
+            mesh = meshlib.create_mesh(meshlib.local_devices(),
+                                       model_parallel=max(spatial, 1))
+        if spatial and not args.full_size:
+            raise SystemExit("--spatial is the full-resolution mode; pass "
+                             "--full-size")
+        self.mesh = mesh
+        self.spatial = spatial
+        self.device = (mesh.primary if mesh is not None
+                       else resolve_device(getattr(args, "device", None)))
         self.batch_size = args.batch_size
+        # the DISTS and ADISTS batches split over the data axis
+        fr_bs = (self.batch_size if mesh is None else
+                 meshlib.pad_to_multiple(self.batch_size, mesh.shape[meshlib.DATA_AXIS]))
         self.want_dists = args.metric in ("dists", "both")
         self.want_adists = args.metric in ("adists", "both")
         model = model.to(self.device).eval()
@@ -232,7 +252,7 @@ class ScoringService:
         self.scorer = FrameScorer(
             model, dists_weights,
             DISTSConfig(compute_dtype=dtype, stats_impl="kernel"),
-            resize_to=None, device=self.device,
+            resize_to=None, mesh=mesh, spatial=bool(spatial), device=self.device,
         ) if self.want_dists else None
         self.nr_scorer = None
         if getattr(args, "nr_ckpt", None):
@@ -245,12 +265,11 @@ class ScoringService:
         self.batchers: dict[str, FrameBatcher] = {}
         if self.scorer is not None:
             self.batchers["dists"] = FrameBatcher(
-                self.scorer.score_batch, self.batch_size, self._device_lock,
-                "dists")
+                self.scorer.score_batch, fr_bs, self._device_lock, "dists")
         if self.want_adists:
             self.batchers["adists"] = FrameBatcher(
-                lambda d, r: adists_batch(model, d, r, acfg),
-                self.batch_size, self._device_lock, "adists")
+                self._adists_step(model, acfg), fr_bs, self._device_lock,
+                "adists")
         if self.nr_scorer is not None:
             self.batchers["nr"] = FrameBatcher(
                 self.nr_scorer.step_batch, self.nr_scorer.batch_size,
@@ -259,6 +278,28 @@ class ScoringService:
         self.n_frames = 0
         self._latencies = collections.deque(maxlen=1000)
         self.started = time.time()
+
+    def _adists_step(self, model, acfg):
+        """ADISTS of one batch (the distorted frame as ``x``): on the
+        service's device, per data shard over the mesh, or H-sharded
+        (``spatial_adists_forward``) with --spatial."""
+        mesh = self.mesh
+        if mesh is None:
+            return lambda d, r: adists_batch(model, d, r, acfg)
+        models = meshlib.replicate(mesh, model)
+        if self.spatial:
+            def spatial_step(d, r):
+                x = _prep(meshlib.to_device(d, self.device), None)
+                y = _prep(meshlib.to_device(r, self.device), None)
+                return spatial_adists_forward(models, x, y, mesh, acfg, as_loss=False)
+            return spatial_step
+
+        def sharded_step(d, r):
+            return torch.cat([
+                adists_batch(models[dev], ds, rs, acfg).to(self.device)
+                for dev, (ds, rs) in zip(mesh.data_devices,
+                                         meshlib.shard_batch(mesh, (d, r)))])
+        return sharded_step
 
     def close(self) -> None:
         """Stop every path's dispatcher thread."""
@@ -455,10 +496,14 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--keep-aspect", action="store_true")
     p.add_argument("--no-warmup", action="store_true")
     p.add_argument("--data-parallel", action="store_true",
-                   help="multi-device scoring: not yet ported (raises)")
+                   help="split DISTS/ADISTS scoring batches over all visible "
+                        "GPUs (NR requests stay on the first)")
     p.add_argument("--spatial", type=int, default=0, metavar="N",
-                   help="height-sharded full-resolution scoring: not yet "
-                        "ported (raises)")
+                   help="additionally split frame HEIGHT N ways "
+                        "(parallel.spatial halo-exchange pyramid): the "
+                        "full-resolution multi-device mode for DISTS and "
+                        "ADISTS; requires --full-size, and frame H divisible "
+                        "by 16*N, W by 16")
     # no-reference serving (requests without "ref"): a trained NR
     # checkpoint + the architecture flags it was trained with
     p.add_argument("--nr-ckpt", default=None,

@@ -15,6 +15,10 @@ never carries on on the CPU unless asked): ``--version`` 1-8, ``--mode
 score-map`` (the score-map objective on ``tools/prep_nr.py --score-maps``
 trees), ``--remat``, and ``--feature-cache`` (ViT tokens from
 ``tools/cache_nr_features.py``; it turns the random augmentations off).
+Under a cluster's ``COORDINATOR_ADDRESS`` / ``NUM_PROCESSES`` /
+``PROCESS_ID`` (``parallel.distributed.maybe_initialize``) each process
+reads only its slice of the sampler's order (``HostShardedSampler``), as
+the JAX tool's processes do.
 Checkpoints go to ``<output-dir>/ckpt/step_<epoch>``
 (``compat/checkpoint.py``); the final one scores with ``python -m
 nerf_qa_torch.tools.score --nr --nr-ckpt <output-dir>/ckpt
@@ -55,6 +59,7 @@ from nerf_qa_torch.core.dists import weights_from_arrays
 from nerf_qa_torch.data.factories import create_nr_dataloader
 from nerf_qa_torch.data.feature_cache import TokenCacheReader
 from nerf_qa_torch.data.pipeline import device_prefetch
+from nerf_qa_torch.parallel.distributed import host_info, maybe_initialize
 from nerf_qa_torch.eval.correlations import compute_correlations
 from nerf_qa_torch.eval.nr_benchmark import benchmark_report, score_benchmark_videos
 from nerf_qa_torch.logging.metrics import MetricAggregator, jsonl_sink, log_artifact
@@ -223,6 +228,9 @@ def _train_batch(trainer: NRTrainer, batch, mode: str,
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     device = resolve_device(args.device)
+    # multi-process: nothing without a coordinator; with one, each process
+    # decodes only its slice of the frame stream
+    distributed = maybe_initialize()
     os.makedirs(args.output_dir, exist_ok=True)
     sink = jsonl_sink(os.path.join(args.output_dir, "metrics.jsonl"))
 
@@ -269,7 +277,11 @@ def main(argv=None) -> int:
         batch_size=args.batch_size, num_workers=args.num_workers,
         seed=args.seed, aug_crop_scale=args.aug_crop_scale,
         aug_rot_deg=args.aug_rot_deg,
-        render_size=args.render_size, sem_size=args.sem_size)
+        render_size=args.render_size, sem_size=args.sem_size,
+        host_sharded=distributed)
+    if distributed:
+        hid, hcount = host_info()
+        print(f"multi-host: process {hid}/{hcount}")
     trainer = NRTrainer(model, train_cfg, steps_per_epoch=max(1, len(loader)),
                         device=device)
     trainer.init()

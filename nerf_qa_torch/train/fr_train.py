@@ -18,7 +18,19 @@ batch (one per stage, on the dist and ref halves of one pyramid batch).
 The step runs in the profiler ranges ``fr.pyramid`` and ``fr.stats``
 (``fr.pair_stats``), ``fr.head_loss``, ``fr.backward`` and
 ``fr.optimizer``. The weight projection is applied in place after every
-optimizer call. There is no data mesh (ROADMAP Queue 1 item 14).
+optimizer call.
+
+With a mesh (``parallel/mesh.py``) a step computes the unsharded step's
+function over the global batch. The frozen pyramid and its statistics,
+nearly all of the work, run per data shard on the shard's device (six
+moments launches a shard; a batch that does not split is padded with its
+last row, and the padded rows are dropped). The head is small: the
+shards' statistics gather on the mesh's first device and the head's loss
+and gradient are taken there, once, over the process's rows. When the
+mesh carries a process group, each process's L1 numerator, its weight sum
+and its gradient go into one ``all_reduce``, so that every process takes
+the gradient of the mean over all processes' rows and ends the step with
+the same parameters and Adam state.
 """
 from __future__ import annotations
 
@@ -32,6 +44,7 @@ from torch.profiler import record_function
 from nerf_qa_torch.config import FRModelConfig, TrainConfig, resolve_device
 from nerf_qa_torch.core import dists
 from nerf_qa_torch.models import fr
+from nerf_qa_torch.parallel import mesh as meshlib
 from nerf_qa_torch.train.schedules import make_schedule
 
 SCHEDULE_FREE = ("sadamw", "schedule_free")
@@ -172,11 +185,14 @@ class FRTrainer:
         n_stats: int = 0,
         n_scene_types: int = 0,
         device: str | torch.device | None = None,
+        mesh: meshlib.Mesh | None = None,
     ):
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = mesh.primary if mesh is not None else resolve_device(device)
         self.model_cfg = model_cfg
         self.train_cfg = train_cfg
         self.vgg = vgg.to(self.device).eval().requires_grad_(False)
+        self._vggs = meshlib.replicate(mesh, self.vgg) if mesh is not None else None
         self.n_stats = n_stats
         self.n_scene_types = n_scene_types
         self.original_weights = (
@@ -212,7 +228,11 @@ class FRTrainer:
             loss, aux = self.loss_fn_cached(params, stats_5nc, targets,
                                             sample_weights, stats, scene_types)
         with record_function("fr.backward"):
-            loss.backward()
+            if self.mesh is not None and self.mesh.group is not None:
+                loss, aux = self._grads_over_group(params, opt_state, loss, aux,
+                                                   sample_weights, targets)
+            else:
+                loss.backward()
         with record_function("fr.optimizer"):
             self.optimizer.update(opt_state)
             if self.train_cfg.project_weights:
@@ -222,6 +242,33 @@ class FRTrainer:
                     params["dists"].alpha.copy_(projected.alpha)
                     params["dists"].beta.copy_(projected.beta)
         return params, opt_state, loss.detach(), tuple(a.detach() for a in aux)
+
+    def _grads_over_group(self, params, opt_state, loss, aux, sample_weights,
+                          targets):
+        """Leave on each param's ``.grad`` the gradient of the loss over
+        every process's rows: this process's L1 numerator Σ w·|err|, its
+        weight sum and the numerator's gradient are summed over the mesh's
+        group by one ``all_reduce``, then divided by the global weight sum.
+        The entropy term depends on the params only, the same in every
+        process, and is added after. Returns the global (loss, aux)."""
+        pred, dists_score, l1 = aux
+        den = (torch.ones_like(pred) if sample_weights is None
+               else self._tensor(sample_weights)).sum()
+        leaves = [p for g in opt_state.opt.param_groups for p in g["params"]]
+        grads = torch.autograd.grad(l1 * den, leaves, allow_unused=True)
+        grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
+        *grads, num, den = meshlib.all_reduce_sum(
+            grads + [(l1 * den).detach().reshape(1), den.reshape(1)], self.mesh.group)
+        for p, g in zip(leaves, grads):
+            p.grad = g / den
+        l1 = (num / den)[0]
+        loss = l1
+        if self.train_cfg.entropy_loss_coeff:
+            ent = self.train_cfg.entropy_loss_coeff * fr.entropy_loss(
+                params, self.original_weights, self.model_cfg)
+            ent.backward()
+            loss = loss + ent.detach()
+        return loss, (pred, dists_score, l1)
 
     # -- public API -------------------------------------------------------
     def loss_fn(self, params, dist_imgs, ref_imgs, targets,
@@ -263,9 +310,21 @@ class FRTrainer:
                 "dists": dists.DISTSWeights(leaf(w.alpha), leaf(w.beta))}
 
     def pair_stats(self, dist_imgs, ref_imgs) -> torch.Tensor:
-        """(5, N, 1475) moments of an image-pair batch (frozen pyramid)."""
-        return fr.pair_stats(self.vgg, self._tensor(dist_imgs),
-                             self._tensor(ref_imgs), self.model_cfg)
+        """(5, N, 1475) moments of an image-pair batch (frozen pyramid),
+        per data shard on the mesh's devices when there is a mesh."""
+        if self.mesh is None:
+            return fr.pair_stats(self.vgg, self._tensor(dist_imgs),
+                                 self._tensor(ref_imgs), self.model_cfg)
+        n = len(dist_imgs)
+        pad = meshlib.pad_to_multiple(n, self.mesh.shape[meshlib.DATA_AXIS]) - n
+        if pad:
+            dist_imgs = meshlib.pad_tail(dist_imgs, pad)
+            ref_imgs = meshlib.pad_tail(ref_imgs, pad)
+        shards = meshlib.shard_batch(self.mesh, (dist_imgs, ref_imgs))
+        return torch.cat([
+            fr.pair_stats(self._vggs[dev], d.float(), r.float(), self.model_cfg
+                          ).to(self.device)
+            for dev, (d, r) in zip(self.mesh.data_devices, shards)], dim=1)[:, :n]
 
     def train_step(self, params, opt_state, dist_imgs, ref_imgs, targets,
                    sample_weights=None, stats=None, scene_types=None):

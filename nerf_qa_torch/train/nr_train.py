@@ -20,6 +20,21 @@ score-map objective (``train_step_score_map``), or cached ViT tokens in
 place of the ViT (``sem_tokens``). It runs on the card unless the caller
 asks for another device; on the card the decoder's ChannelNorms launch the
 forward and backward kernels and the JBU stack its kernel.
+
+With a mesh (``parallel/mesh.py``) a step computes the unsharded step's
+function over the global batch: each data shard runs ``losses`` on its
+rows, in a thread of its own (``parallel.mesh.ShardGroup``), on its
+device's copy of the model (``parallel.mesh.replicate``; the copies take
+the decoder's weights before each step), and the global losses are the
+shards' means weighted by their rows. Each shard passes its
+``parallel.mesh.Shard`` down the model in place of the generator; it
+holds the two couplings of the rows: dropout draws the global batch's
+masks from the one generator and keeps the shard's rows, and the v1-v6
+BatchNorms normalise with the global batch statistics. One backward
+reaches every shard; the copies' gradients are added to the trainer's
+decoder. The mesh stays within one process (a mesh with a process group
+is refused): as with the JAX tool, ``tools/train_nr.py``'s processes each
+train on their own slice.
 """
 from __future__ import annotations
 
@@ -32,8 +47,9 @@ from torch.profiler import record_function
 from nerf_qa_torch.config import TrainConfig, resolve_device
 from nerf_qa_torch.logging.metrics import MetricAggregator
 from nerf_qa_torch.models.nr.decoder import NRDecoder
-from nerf_qa_torch.models.nr.layers import init_lecun_normal_
+from nerf_qa_torch.models.nr.layers import generator_at, init_lecun_normal_
 from nerf_qa_torch.models.nr.model import NRModel
+from nerf_qa_torch.parallel import mesh as meshlib
 from nerf_qa_torch.train.schedules import make_schedule
 
 
@@ -58,9 +74,15 @@ class NRTrainer:
     def __init__(self, model: NRModel,
                  train_cfg: TrainConfig = TrainConfig(batch_size=4),
                  steps_per_epoch: int = 100,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None,
+                 mesh: meshlib.Mesh | None = None):
+        if mesh is not None and mesh.group is not None:
+            raise ValueError("NRTrainer's mesh stays within one process; "
+                             "train_nr's processes train their own slices")
+        self.mesh = mesh
+        self.device = mesh.primary if mesh is not None else resolve_device(device)
         self.model = model.to(self.device)
+        self._replicas: dict[torch.device, NRModel] | None = None
         self.train_cfg = train_cfg
         self.schedule = make_schedule(train_cfg, steps_per_epoch)
         self.optimizer: torch.optim.Adam | None = None
@@ -82,6 +104,7 @@ class NRTrainer:
     def set_decoder(self, decoder: NRDecoder) -> None:
         """Train ``decoder`` from step 0 with a fresh optimizer."""
         self.model.decoder = decoder.to(self.device)
+        self._replicas = None
         cfg = self.train_cfg
         self.optimizer = torch.optim.Adam(
             self.model.decoder.parameters(), lr=self.schedule(0),
@@ -101,13 +124,73 @@ class NRTrainer:
             group["lr"] = self.schedule(self.step)
         self.optimizer.zero_grad(set_to_none=True)
         with self.model.train_precision():
-            losses = self.model.losses(gt, r256, r224, generator=self.generator, **kw)
+            if self.mesh is None:
+                losses = self.model.losses(gt, r256, r224, generator=self.generator,
+                                           **kw)
+            else:
+                losses = self._sharded_losses(gt, r256, r224, kw)
             with record_function("nr.backward"):
                 losses["combined"].backward()
+                if self.mesh is not None:
+                    self._reduce_grads()
         with record_function("nr.optimizer"):
             self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
+
+    def _shard_models(self) -> dict[torch.device, NRModel]:
+        """The model each device of the mesh runs (``replicate``: the
+        trainer's on its device, a copy elsewhere), the copies' decoder
+        and α/β loaded from the trainer's."""
+        if self._replicas is None:
+            self._replicas = meshlib.replicate(self.mesh, self.model)
+        with torch.no_grad():
+            for copy_ in self._replicas.values():
+                if copy_ is not self.model:
+                    copy_.decoder.load_state_dict(self.model.decoder.state_dict())
+                    copy_.alpha.copy_(self.model.alpha)
+                    copy_.beta.copy_(self.model.beta)
+        return self._replicas
+
+    def _sharded_losses(self, gt, r256, r224, kw) -> dict[str, torch.Tensor]:
+        """The global batch's losses from its data shards (module
+        docstring). The batch must split evenly over the data axis."""
+        mesh = self.mesh
+        n = gt.shape[0]
+        slices = meshlib.data_sharding(mesh, n)
+        models = self._shard_models()
+        group = meshlib.ShardGroup(len(slices))
+        start = self.generator.get_state()
+        shards = [meshlib.Shard(group, i, sl, n, self.generator if i == 0
+                                else generator_at(self.generator, start))
+                  for i, sl in enumerate(slices)]
+
+        def shard(i: int) -> dict[str, torch.Tensor]:
+            dev = mesh.data_devices[i]
+            rows = slices[i]
+            args = meshlib.to_device(
+                (gt[rows], r256[rows], r224[rows],
+                 {k: None if v is None else v[rows] for k, v in kw.items()}), dev)
+            model = models[dev]
+            model.decoder.train()
+            return model.losses(*args[:3], generator=shards[i], **args[3])
+
+        results = group.run(shard)
+        return {key: sum(r[key].to(self.device) * ((sl.stop - sl.start) / n)
+                         for r, sl in zip(results, slices))
+                for key in results[0]}
+
+    def _reduce_grads(self) -> None:
+        """Add the copies' decoder gradients to the trainer's."""
+        params = list(self.model.decoder.parameters())
+        for copy_ in self._replicas.values():
+            if copy_ is self.model:
+                continue
+            for p, q in zip(params, copy_.decoder.parameters()):
+                if q.grad is not None:
+                    g = q.grad.to(self.device)
+                    p.grad = g if p.grad is None else p.grad + g
+                    q.grad = None
 
     def train_step(self, gt, render_256, render_224, score_std=None, score_mean=None,
                    sem_tokens=None) -> dict[str, torch.Tensor]:
@@ -144,9 +227,19 @@ class NRTrainer:
         BatchNorms on their running averages)."""
         self.model.decoder.eval()
         with torch.no_grad():
-            toks = None if sem_tokens is None else self._to_device(sem_tokens)
-            return self.model(self._to_device(render_256), self._to_device(render_224),
-                              toks).cpu().numpy()
+            if self.mesh is None:
+                toks = None if sem_tokens is None else self._to_device(sem_tokens)
+                return self.model(self._to_device(render_256),
+                                  self._to_device(render_224), toks).cpu().numpy()
+            models = self._shard_models()
+            scores = []
+            for dev, (r256, r224, toks) in zip(
+                    self.mesh.data_devices,
+                    meshlib.shard_batch(self.mesh, (render_256, render_224, sem_tokens))):
+                models[dev].decoder.eval()
+                scores.append(models[dev](r256.float(), r224.float(),
+                                          toks).cpu().numpy())
+            return np.concatenate(scores)
 
     def score_video(self, render_256, render_224, batch_size: int = 4) -> float:
         """Mean frame score over a video (train-nr.py:305-315), in

@@ -1,20 +1,47 @@
-"""Profiling hooks: named ranges and a rolling step timer.
+"""Profiling hooks: a trace on request, named ranges and a rolling step
+timer.
 
-Counterpart of ``nerf_qa_tpu/utils/profiling.py``, the part the FR
-trainer CLI uses. Reference behavior: torch.profiler
-``record_function("load_data") / record_function("model_inference")``
-scopes around the NR train loop (train-nr.py:273,280). Here
-``record_function`` is ``torch.profiler.record_function`` itself: a
-range that costs nothing unless a profiler is recording, and that
-``chip_smoke.range_times`` reads from a trace.
+Counterpart of ``nerf_qa_tpu/utils/profiling.py``. Reference behavior:
+torch.profiler ``record_function("load_data") /
+record_function("model_inference")`` scopes around the NR train loop
+(train-nr.py:273,280; the enclosing profile() context is committed
+disabled). Here ``record_function`` is ``torch.profiler.record_function``
+itself: a range that costs nothing unless a profiler is recording, and
+that ``chip_smoke.range_times`` reads from a trace. ``trace_if_enabled``
+records such a trace when asked, and does nothing otherwise.
 """
 from __future__ import annotations
 
+import contextlib
+import os
 import time
+from typing import Iterator
 
+import torch
 from torch.profiler import record_function
 
-__all__ = ["StepTimer", "record_function"]
+__all__ = ["StepTimer", "TRACE_ENV", "record_function", "trace_if_enabled"]
+
+TRACE_ENV = "NERF_QA_TORCH_TRACE_DIR"
+
+
+@contextlib.contextmanager
+def trace_if_enabled(trace_dir: str | None = None) -> Iterator[None]:
+    """A ``torch.profiler`` trace of the block (host ops, and the device's
+    kernels where CUDA is available), written to ``trace_dir`` or to
+    ``$NERF_QA_TORCH_TRACE_DIR`` as a Chrome trace
+    (``<host>_<pid>.<time>.pt.trace.json``; TensorBoard or
+    chrome://tracing read it). Without either it does nothing."""
+    trace_dir = trace_dir or os.environ.get(TRACE_ENV)
+    if not trace_dir:
+        yield
+        return
+    acts = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        acts.append(torch.profiler.ProfilerActivity.CUDA)
+    handler = torch.profiler.tensorboard_trace_handler(trace_dir)
+    with torch.profiler.profile(activities=acts, on_trace_ready=handler):
+        yield
 
 
 class StepTimer:

@@ -206,8 +206,9 @@ def _imported_modules(path: pathlib.Path) -> set[str]:
 
 
 def test_source_scan_no_jax_or_reference_package():
-    files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
-    assert len(files) > 15
+    files = (sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+             + sorted((REPO / "probes").glob("*.py")))
+    assert len(files) > 15 and REPO / "probes" / "cudnn_numerics.py" in files
     for path in files:
         text = path.read_text()
         assert "nerf_qa_tpu" not in text.replace("nerf_qa_tpu/", ""), path

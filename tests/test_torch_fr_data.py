@@ -331,3 +331,7 @@ print(" ".join(names))
             "nerf_qa_torch.tools.golden_check", "nerf_qa_torch.tools.verify_assets",
             "nerf_qa_torch.tools.plot_results", "nerf_qa_torch.tools.sweep",
             "nerf_qa_torch.tools.init_sweep"} <= set(names.split())
+    # many devices and the last utilities
+    assert {"nerf_qa_torch.parallel.mesh", "nerf_qa_torch.parallel.distributed",
+            "nerf_qa_torch.parallel.spatial", "nerf_qa_torch.utils.benchtime",
+            "nerf_qa_torch.utils.profiling"} <= set(names.split())

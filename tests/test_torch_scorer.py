@@ -114,9 +114,34 @@ def test_frame_scorer_needs_a_device_without_cuda(torch_model, monkeypatch):
         tvs.FrameScorer(torch_model, tdists.load_pretrained_weights())
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object()), dict(spatial=True),
+@pytest.mark.parametrize("kw", [dict(mesh=True), dict(spatial=True),
                                 dict(antialias=True)])
 def test_frame_scorer_unported_options_raise(jax_params, torch_model, frames, kw):
+    if "mesh" in kw:
+        # ported since: over a four-device CPU mesh the scores are the JAX
+        # scorer's over its four-device mesh (fp32 + eager, 90x120 uint8
+        # -> 64x64, batch 5 padded to 8: atol 1e-4)
+        import jax
+
+        from nerf_qa_torch.parallel.mesh import create_mesh
+        from nerf_qa_tpu.parallel.mesh import create_mesh as jcreate_mesh
+
+        d, r = frames
+        want = JFrameScorer(jax_params, jdists.load_pretrained_weights(),
+                            cfg=JConfig(), resize_to=(64, 64),
+                            mesh=jcreate_mesh(jax.devices()[:4])
+                            ).score_frames(d, r, batch_size=5)
+        got = tvs.FrameScorer(torch_model, tdists.load_pretrained_weights(), TConfig(),
+                              resize_to=(64, 64), mesh=create_mesh(["cpu"] * 4)
+                              ).score_frames(d, r, batch_size=5)
+        np.testing.assert_allclose(got, want, atol=1e-4)
+        return
+    if "spatial" in kw:
+        # ported since: the full-resolution mode needs a mesh, as the JAX
+        # scorer's does (tests/test_torch_spatial.py scores with one)
+        with pytest.raises(ValueError, match="requires a mesh"):
+            _scorer(torch_model, resize_to=None, **kw)
+        return
     if "antialias" in kw:
         # ported since: scores as the JAX scorer with antialias=True
         # (fp32 + eager, 90x120 uint8 -> 64x64: atol 1e-4)
@@ -127,9 +152,6 @@ def test_frame_scorer_unported_options_raise(jax_params, torch_model, frames, kw
         got = _scorer(torch_model, resize_to=(64, 64), **kw).score_frames(
             d, r, batch_size=5)
         np.testing.assert_allclose(got, want, atol=1e-4)
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _scorer(torch_model, **kw)
 
 
 def test_frame_count_mismatch_raises(torch_model):

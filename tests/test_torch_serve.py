@@ -5,7 +5,7 @@ at test_torch_adists.py's 1e-4), an mp4 request against its
 frame-directory twin, the stdio and HTTP transports, bad requests,
 FrameBatcher's coalescing, splitting and error isolation (as
 tests/test_serve.py), concurrent HTTP clients sharing device batches, the
-multi-device options' error, and an NR request against the port's
+multi-device options' error without CUDA, and an NR request against the port's
 ``score --nr`` on the same frames."""
 import io
 import json
@@ -200,8 +200,12 @@ def test_non_object_requests_do_not_kill_the_service(service, pair_dirs):
 
 
 @pytest.mark.parametrize("flag", [["--data-parallel"], ["--spatial", "2", "--full-size"]])
-def test_multi_device_options_raise_naming_item_14(torch_model, flag):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 14"):
+def test_multi_device_options_raise_naming_item_14(torch_model, flag, monkeypatch):
+    # ported since (tests/test_torch_parallel.py serves with them): the
+    # multi-device options build a mesh over the local GPUs, and without
+    # CUDA they raise rather than carry on on the CPU
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tserve.ScoringService(_args(*flag), torch_model, tpre.resolve_dists_weights())
 
 
