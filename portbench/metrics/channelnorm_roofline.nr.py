@@ -1,0 +1,13 @@
+"""Per cent of its roofline that the ChannelNorm forward kernel reaches in
+each ``ChannelNorm`` forward: the bound of the call's rows over the device
+time of ``channel_norm_kernel``."""
+from portbench.traces import cn_bound, roofline_share, span_args
+
+
+def bound(span):
+    rows, c, gelu, itemsize = span_args(span)
+    return cn_bound(rows, c, bool(gelu), itemsize)
+
+
+def read(run):
+    return roofline_share(run.trace, "pb.cn", "channel_norm_kernel", bound)

@@ -1,0 +1,7 @@
+"""Device ms a step of the kernels, copies and sets launched inside the
+``nr.decoder_fwd`` spans of the profiled steps."""
+from portbench.traces import device_ms_per_step
+
+
+def read(run):
+    return device_ms_per_step(run.trace, "nr.decoder_fwd")

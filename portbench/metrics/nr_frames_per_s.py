@@ -1,0 +1,6 @@
+"""nr_frames_per_s: renders scored in the window over the window's whole
+host time."""
+
+
+def read(run):
+    return run.frames / run.window_s if run.window_s > 0 else None
