@@ -1031,15 +1031,21 @@ def profile_step(fn) -> dict:
     return dict(out, **range_times(prof))
 
 
+STEP_RANGES = ("nr.encode", "nr.decoder_fwd", "nr.losses", "nr.score_map", "nr.backward",
+               "nr.optimizer", "fr.pyramid", "fr.stats", "fr.head_loss", "fr.backward",
+               "fr.optimizer")
+
+
 def range_times(prof) -> dict:
-    """Per-layer times of a profiled call from the port's own profiler
-    ranges (``record_function("nr.*")`` in ``NRModel.losses`` and
-    ``NRTrainer.train_step``, ``"fr.*"`` in ``models/fr.pair_stats`` and
-    ``FRTrainer``): each range's host span, and the device time
-    of the kernels, copies and sets launched inside it. A kernel belongs
-    to the range whose host span holds its launch call, on any thread
-    (autograd launches the backward from its own); what no range holds is
-    ``other_ms``. Empty when the call ran no such range."""
+    """Per-layer times of a profiled call from the port's own spans over
+    the parts of a training step (``STEP_RANGES``: in ``NRModel.losses``
+    and ``NRTrainer._step``, ``models/fr.pair_stats`` and ``FRTrainer``;
+    the spans nested inside them are not read): each range's host span,
+    and the device time of the kernels, copies and sets launched inside
+    it. A kernel belongs to the range whose host span holds its launch
+    call, on any thread (autograd launches the backward from its own);
+    what no range holds is ``other_ms``. Empty when the call ran no such
+    range."""
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/trace.json"
         prof.export_chrome_trace(path)
@@ -1047,7 +1053,7 @@ def range_times(prof) -> dict:
             events = json.load(f)["traceEvents"]
     spans = [(e["ts"], e["ts"] + e["dur"], e["name"].split(".", 1)[1] + "_ms")
              for e in events if e.get("cat") == "user_annotation"
-             and str(e.get("name", "")).startswith(("nr.", "fr."))]
+             and e.get("name") in STEP_RANGES]
     if not spans:
         return {}
     launched = {e["args"]["correlation"]: e["ts"] for e in events

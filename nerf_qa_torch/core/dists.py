@@ -28,6 +28,7 @@ from torch import nn
 
 from nerf_qa_torch.config import DISTSConfig, torch_dtype
 from nerf_qa_torch.core.vgg import PYRAMID_CHANNELS, VGG16Pyramid
+from nerf_qa_torch.utils.profiling import span
 
 TOTAL_CHANNELS = sum(PYRAMID_CHANNELS)  # 1475
 
@@ -162,7 +163,8 @@ def stage_stats_eager(fx: torch.Tensor, fy: torch.Tensor) -> StageStats:
 def pyramid_stats(feats0: Sequence[torch.Tensor], feats1: Sequence[torch.Tensor],
                   cfg: DISTSConfig = DISTSConfig()) -> torch.Tensor:
     """All six stages' statistics, concatenated over channels: a
-    (5, N, 1475) tensor [mean_x, mean_y, var_x, var_y, cov]."""
+    (5, N, 1475) tensor [mean_x, mean_y, var_x, var_y, cov], in the span
+    ``dists.stats`` with n, h, w, c and itemsize of each of ``feats0``."""
     if cfg.stats_impl == "kernel":
         from nerf_qa_torch.ops.cuda.moments import stage_stats_kernel
 
@@ -172,10 +174,12 @@ def pyramid_stats(feats0: Sequence[torch.Tensor], feats1: Sequence[torch.Tensor]
     else:
         raise ValueError(f"stats_impl must be 'eager' or 'kernel', got "
                          f"{cfg.stats_impl!r}")
-    per_stage = [stats_fn(fx, fy) for fx, fy in zip(feats0, feats1)]
-    return torch.stack(
-        [torch.cat([s[i] for s in per_stage], dim=-1) for i in range(5)]
-    )
+    with span("dists.stats", lambda: [v for f in feats0
+                                      for v in (*f.shape, f.element_size())]):
+        per_stage = [stats_fn(fx, fy) for fx, fy in zip(feats0, feats1)]
+        return torch.stack(
+            [torch.cat([s[i] for s in per_stage], dim=-1) for i in range(5)]
+        )
 
 
 def score_from_stats(stats: torch.Tensor, w: DISTSWeights,

@@ -33,6 +33,7 @@ from torch import nn
 
 from nerf_qa_torch.config import true_fp32
 from nerf_qa_torch.ops.l2pool import hann_filter, l2pool_nchw
+from nerf_qa_torch.utils.profiling import span
 
 # (in_channels, out_channels) per conv, per stage (DISTS_pt.py:36-49).
 VGG16_STAGES: tuple[tuple[tuple[int, int], ...], ...] = (
@@ -128,16 +129,18 @@ class VGG16Pyramid(nn.Module):
                 compute_dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
         """NHWC images in [0, 1] -> ``[x, relu1_2, relu2_2, relu3_3,
         relu4_3, relu5_3]`` as NHWC tensors in ``compute_dtype`` (the
-        feature list of DISTS.forward_once, DISTS_pt.py:91-103)."""
-        feats = [x.to(compute_dtype).contiguous()]
-        h = _nchw(x.float())
-        h = (h - self.mean) / self.std
-        with _precision(compute_dtype):
-            for si in range(1, 6):
-                # after stage 1, h is in the flow dtype; the pool keeps it
-                h = self._run_stage(si, h, compute_dtype)
-                feats.append(h.permute(0, 2, 3, 1))
-        return feats
+        feature list of DISTS.forward_once, DISTS_pt.py:91-103), in the
+        span ``dists.vgg``."""
+        with span("dists.vgg"):
+            feats = [x.to(compute_dtype).contiguous()]
+            h = _nchw(x.float())
+            h = (h - self.mean) / self.std
+            with _precision(compute_dtype):
+                for si in range(1, 6):
+                    # after stage 1, h is in the flow dtype; the pool keeps it
+                    h = self._run_stage(si, h, compute_dtype)
+                    feats.append(h.permute(0, 2, 3, 1))
+            return feats
 
 
 def init_he_normal(model: VGG16Pyramid, generator: torch.Generator) -> VGG16Pyramid:

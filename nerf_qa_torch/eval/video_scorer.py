@@ -29,23 +29,25 @@ from nerf_qa_torch.core import dists
 from nerf_qa_torch.core.vgg import VGG16Pyramid
 from nerf_qa_torch.ops.resize import resize_bilinear, resize_bilinear_aa
 from nerf_qa_torch.parallel import mesh as meshlib
+from nerf_qa_torch.utils.profiling import span
 
 
 def _prep(frames: torch.Tensor, out_hw: tuple[int, int] | None,
           fast: bool = False, antialias: bool = False) -> torch.Tensor:
     """Frames (uint8 or float in [0, 1]) -> fp32 NHWC in [0, 1] at
-    ``out_hw`` (None: input resolution)."""
-    scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
-    if out_hw is not None and tuple(frames.shape[1:3]) != tuple(out_hw):
-        if antialias:
-            return resize_bilinear_aa(frames.float() * scale, *out_hw)
-        if fast:
-            # serving path: bf16 matmul resize with folded normalisation
-            return resize_bilinear(frames, out_hw[0], out_hw[1],
-                                   compute_dtype=torch.bfloat16, scale=scale)
-        return resize_bilinear(frames, out_hw[0], out_hw[1], scale=scale)
-    x = frames.float()
-    return x * scale if scale != 1.0 else x
+    ``out_hw`` (None: input resolution), in the span ``fr.prep``."""
+    with span("fr.prep"):
+        scale = 1.0 / 255.0 if frames.dtype == torch.uint8 else 1.0
+        if out_hw is not None and tuple(frames.shape[1:3]) != tuple(out_hw):
+            if antialias:
+                return resize_bilinear_aa(frames.float() * scale, *out_hw)
+            if fast:
+                # serving path: bf16 matmul resize with folded normalisation
+                return resize_bilinear(frames, out_hw[0], out_hw[1],
+                                       compute_dtype=torch.bfloat16, scale=scale)
+            return resize_bilinear(frames, out_hw[0], out_hw[1], scale=scale)
+        x = frames.float()
+        return x * scale if scale != 1.0 else x
 
 
 def batched_map(fn, arrays, batch_size: int) -> np.ndarray:
@@ -121,11 +123,12 @@ class FrameScorer:
 
     def score_batch(self, dist_frames, ref_frames) -> torch.Tensor:
         """Per-frame scores (a device tensor) for one batch; numpy arrays
-        and tensors on any device are accepted."""
+        and tensors on any device are accepted. Runs in the span
+        ``fr.score``."""
         fast = self.cfg.compute_dtype == "bfloat16"
         # the fp32 path resizes and convolves in true fp32 (no TF32)
         precision = contextlib.nullcontext() if fast else true_fp32()
-        with torch.no_grad(), precision:
+        with torch.no_grad(), precision, span("fr.score"):
             if self.mesh is None:
                 return self._score(self.model, self.weights, self.device,
                                    dist_frames, ref_frames, fast)
@@ -144,8 +147,10 @@ class FrameScorer:
 
     def _score(self, model, weights, device, dist_frames, ref_frames,
                fast: bool) -> torch.Tensor:
-        d = meshlib.to_device(dist_frames, device)
-        r = meshlib.to_device(ref_frames, device)
+        frames = (dist_frames, ref_frames)
+        with span("fr.h2d", lambda: meshlib.host_copy(frames, device)):
+            d = meshlib.to_device(dist_frames, device)
+            r = meshlib.to_device(ref_frames, device)
         x = _prep(d, self.resize_to, fast, self.antialias)
         y = _prep(r, self.resize_to, fast, self.antialias)
         return dists.forward(model, weights, x, y, self.cfg)

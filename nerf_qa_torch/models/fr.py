@@ -21,10 +21,10 @@ from typing import Any
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nerf_qa_torch.config import FRModelConfig, torch_dtype
 from nerf_qa_torch.core import dists
+from nerf_qa_torch.utils.profiling import span
 
 
 def _logistic_np(x, b1, b2, b3, b4, sign):
@@ -148,10 +148,10 @@ def pair_stats(vgg: torch.nn.Module, dist_imgs: torch.Tensor,
     profiler ranges ``fr.pyramid`` and ``fr.stats``."""
     n = dist_imgs.shape[0]
     with torch.no_grad():
-        with record_function("fr.pyramid"):
+        with span("fr.pyramid"):
             both = vgg(torch.cat([dist_imgs, ref_imgs]),
                        torch_dtype(cfg.dists.compute_dtype))
-        with record_function("fr.stats"):
+        with span("fr.stats"):
             return dists.pyramid_stats([f[:n] for f in both],
                                        [f[n:] for f in both], cfg.dists)
 

@@ -70,6 +70,7 @@ from nerf_qa_torch.models.nr.layers import (
 )
 from nerf_qa_torch.ops.resize import resize_bilinear
 from nerf_qa_torch.ops.subpixel import conv_transpose_2x
+from nerf_qa_torch.utils.profiling import span
 
 DISTS_CHNS: tuple[int, ...] = (3, 64, 128, 256, 512, 512)
 
@@ -437,7 +438,12 @@ class NRDecoder(nn.Module):
         VGG pyramid (v3's RefineDown only). Returns (predicted GT DISTS
         features in [x, s1..s5] order as NHWC tensors, in the decoder's
         dtype for v7/v8 and fp32 for v1-v6, or None for v4; the (N, H, W, k)
-        fp32 score-regression map, or None)."""
+        fp32 score-regression map, or None). Runs in the span
+        ``nr.decoder``."""
+        with span("nr.decoder"):
+            return self._cascade(dists_feats, sem_feats, sem_pyramid, generator, vgg)
+
+    def _cascade(self, dists_feats, sem_feats, sem_pyramid, generator, vgg):
         cfg = self.cfg
         v = cfg.version
         top = dists_feats[-1].float()

@@ -30,6 +30,7 @@ from torch import nn
 from nerf_qa_torch.models.nr.layers import nchw, nhwc
 from nerf_qa_torch.ops.cuda.jbu import jbu_filter, jbu_filter_plain
 from nerf_qa_torch.ops.resize import adaptive_avg_pool, resize_bicubic
+from nerf_qa_torch.utils.profiling import span
 
 
 class JBU(nn.Module):
@@ -54,18 +55,21 @@ class JBU(nn.Module):
 
     def forward(self, source: torch.Tensor, guidance: torch.Tensor) -> torch.Tensor:
         """source (N, h, w, C); guidance (N, 2h, 2w, 3) already pooled to
-        the target grid. Returns (N, 2h, 2w, C) fp32."""
-        gh, gw = guidance.shape[1:3]
-        d = 2 * self.radius + 1
-        proj = nhwc(self.range_proj(nchw(guidance.float()))).contiguous()
-        temp = torch.clamp(torch.exp(self.range_temp), 1e-4, 1e4)
-        hr = resize_bicubic(source, gh, gw)
-        offs = np.linspace(-1.0, 1.0, d, dtype=np.float32)
-        sq = (offs[:, None] ** 2 + offs[None, :] ** 2).reshape(-1)
-        spatial = torch.exp(-torch.as_tensor(sq, device=hr.device)
-                            / (2.0 * self.sigma_spatial**2))
-        filt = jbu_filter if self.fused and hr.is_cuda else jbu_filter_plain
-        return filt(hr, proj, spatial, temp, self.radius)
+        the target grid. Returns (N, 2h, 2w, C) fp32. Runs in the span
+        ``nr.jbu:<n>:<2h>:<2w>:<C>:4``."""
+        with span("nr.jbu", lambda: (*guidance.shape[:3], source.shape[-1], 4)):
+            gh, gw = guidance.shape[1:3]
+            d = 2 * self.radius + 1
+            proj = nhwc(self.range_proj(nchw(guidance.float()))).contiguous()
+            temp = torch.clamp(torch.exp(self.range_temp), 1e-4, 1e4)
+            hr = resize_bicubic(source, gh, gw)
+            with span("ops.upload", lambda: (4 * d * d,)):
+                offs = np.linspace(-1.0, 1.0, d, dtype=np.float32)
+                sq = (offs[:, None] ** 2 + offs[None, :] ** 2).reshape(-1)
+                sq = torch.as_tensor(sq, device=hr.device)
+            spatial = torch.exp(-sq / (2.0 * self.sigma_spatial**2))
+            filt = jbu_filter if self.fused and hr.is_cuda else jbu_filter_plain
+            return filt(hr, proj, spatial, temp, self.radius)
 
 
 class JBUStack(nn.Module):

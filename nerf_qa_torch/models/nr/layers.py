@@ -51,6 +51,7 @@ from nerf_qa_torch.ops.cuda.channelnorm import (
 )
 from nerf_qa_torch.ops.subpixel import conv_transpose_2x, conv_transpose_2x_subpixel
 from nerf_qa_torch.parallel.mesh import Shard
+from nerf_qa_torch.utils.profiling import span
 
 
 class ChannelNorm(nn.Module):
@@ -72,15 +73,18 @@ class ChannelNorm(nn.Module):
         self.fused = True
 
     def forward(self, x: torch.Tensor, gelu: bool = False) -> torch.Tensor:
-        """NCHW in, NCHW out (channels_last memory when ``x`` has it)."""
-        rows = x.permute(0, 2, 3, 1)
-        if self.fused and x.is_cuda:
-            y = channel_norm_act(rows.contiguous(), self.norm.weight,
-                                 self.norm.bias, gelu=gelu, eps=self.eps)
-        else:
-            y = channel_norm_act_plain(rows, self.norm.weight, self.norm.bias,
-                                       gelu=gelu, eps=self.eps)
-        return y.permute(0, 3, 1, 2)
+        """NCHW in, NCHW out (channels_last memory when ``x`` has it), in
+        the span ``nr.cn:<rows>:<c>:<gelu>:<itemsize>``."""
+        c = x.shape[1]
+        with span("nr.cn", lambda: (x.numel() // c, c, gelu, x.element_size())):
+            rows = x.permute(0, 2, 3, 1)
+            if self.fused and x.is_cuda:
+                y = channel_norm_act(rows.contiguous(), self.norm.weight,
+                                     self.norm.bias, gelu=gelu, eps=self.eps)
+            else:
+                y = channel_norm_act_plain(rows, self.norm.weight, self.norm.bias,
+                                           gelu=gelu, eps=self.eps)
+            return y.permute(0, 3, 1, 2)
 
 
 def generator_at(generator, state: torch.Tensor):

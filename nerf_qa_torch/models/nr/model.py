@@ -49,7 +49,6 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from nerf_qa_torch.config import ADISTSConfig, NRModelConfig, torch_dtype, true_fp32
 from nerf_qa_torch.core import adists, dists
@@ -59,6 +58,7 @@ from nerf_qa_torch.models.nr.featup import JBUStack
 from nerf_qa_torch.models.nr.layers import init_lecun_normal_
 from nerf_qa_torch.models.nr.vit import ViTS14, init_vit_
 from nerf_qa_torch.ops.resize import resize_bilinear
+from nerf_qa_torch.utils.profiling import span
 
 
 class EncoderFeats(NamedTuple):
@@ -136,7 +136,8 @@ class NRModel(nn.Module):
             if sem_tokens is not None:
                 sem_feats = sem_tokens.float()
             else:
-                toks = self.vit(sem_input)
+                with span("nr.vit"):
+                    toks = self.vit(sem_input)
                 gh, gw = toks["grid"]
                 sem_feats = toks["x_norm_patchtokens"].reshape(
                     sem_input.shape[0], gh, gw, -1)
@@ -221,8 +222,11 @@ class NRModel(nn.Module):
     def forward(self, render_256: torch.Tensor, render_224: torch.Tensor,
                 sem_tokens: torch.Tensor | None = None) -> torch.Tensor:
         """(N,) NR scores of NHWC renders at 256² and 224² in [0, 1]
-        (``sem_tokens``: cached ViT tokens in place of the ViT)."""
-        return self.forward_from_feats(self.encode(render_256, render_224, sem_tokens))
+        (``sem_tokens``: cached ViT tokens in place of the ViT), in the span
+        ``nr.forward``."""
+        with span("nr.forward"):
+            return self.forward_from_feats(self.encode(render_256, render_224,
+                                                       sem_tokens))
 
     def forward_normalized(self, render_256: torch.Tensor, render_224: torch.Tensor):
         """v6's (score, normalized) forward (model_nr_v6.py:227-240):
@@ -274,14 +278,14 @@ class NRModel(nn.Module):
         without, the losses are deterministic. The render and the ground
         truth go through one VGG stream; the ground-truth DISTS score is a
         target (no grad), and the only gradient is the decoder's. Its parts
-        run in the profiler ranges ``nr.encode``, ``nr.decoder_fwd``,
-        ``nr.losses`` and, with a score map, ``nr.score_map``."""
+        run in the spans ``nr.encode``, ``nr.decoder_fwd``, ``nr.losses``
+        and, with a score map, ``nr.score_map``."""
         cfg = self.cfg
         n = render_256.shape[0]
         dtype = torch_dtype(cfg.dists.compute_dtype)
         w = self.dists_weights
         with self.train_precision():
-            with torch.no_grad(), record_function("nr.encode"):
+            with torch.no_grad(), span("nr.encode"):
                 sem_feats, sem_pyramid = self._sem_encode(render_256, render_224,
                                                           sem_tokens)
                 both = self.vgg(torch.cat([render_256, gt_image]), dtype)
@@ -290,9 +294,9 @@ class NRModel(nn.Module):
                 gt_score = dists.score_from_feats(
                     w, gt_feats, [f.float().contiguous() for f in feats.dists_feats],
                     cfg.dists)
-            with record_function("nr.decoder_fwd"):
+            with span("nr.decoder_fwd"):
                 predicted, reg_map = self._decode(feats, generator)
-            with record_function("nr.losses"):
+            with span("nr.losses"):
                 score, reg = self._compose_score(feats, predicted, reg_map)
                 l1 = (score - gt_score).abs().mean()
                 losses = {"l1": l1}
@@ -324,7 +328,7 @@ class NRModel(nn.Module):
                     losses["re_encode"] = re_loss
                     combined = combined + cfg.re_encode_coeff * re_loss
             if score_map is not None:
-                with record_function("nr.score_map"):
+                with span("nr.score_map"):
                     sm_l1 = self.score_map_l1(predicted[0], render_256, score_map)
                 losses["score_map_l1"] = sm_l1
                 combined = combined + cfg.score_map_coeff * sm_l1

@@ -35,6 +35,8 @@ import torch
 import torch.nn.functional as F
 from torch.autograd.function import once_differentiable
 
+from nerf_qa_torch.utils.profiling import span
+
 # Launches of the CUDA kernels: one per forward call on the card, one per
 # backward call on the card.
 launches = 0
@@ -233,7 +235,8 @@ class ChannelNormAct(torch.autograd.Function):
     """ChannelNorm(+GELU) on the card: the forward kernel, and the
     backward kernel for its gradient (the TPU package's ``_cn_act``
     custom VJP). x must be contiguous rows; the saved x is the one the
-    backward recomputes the statistics from."""
+    backward recomputes the statistics from. The backward runs in the span
+    ``nr.cn_bwd:<rows>:<c>:<gelu>:<itemsize>``, on autograd's thread."""
 
     @staticmethod
     def forward(ctx, x, scale, bias, gelu: bool, eps: float):
@@ -245,8 +248,10 @@ class ChannelNormAct(torch.autograd.Function):
     @once_differentiable
     def backward(ctx, g):
         x, scale, bias = ctx.saved_tensors
-        dx, dscale, dbias = channel_norm_act_bwd(x, g, scale, bias,
-                                                 gelu=ctx.gelu, eps=ctx.eps)
+        c = x.shape[-1]
+        with span("nr.cn_bwd", lambda: (x.numel() // c, c, ctx.gelu, x.element_size())):
+            dx, dscale, dbias = channel_norm_act_bwd(x, g, scale, bias,
+                                                     gelu=ctx.gelu, eps=ctx.eps)
         return dx, dscale.to(scale.dtype), dbias.to(bias.dtype), None, None
 
 

@@ -8,12 +8,19 @@ Counterpart of ``nerf_qa_tpu/ops/resize.py`` (``_resize_matrix``,
 plain matrix products with the JAX package's (out, in) matrices; a row
 holds the lerp, cubic or bin weights, so the fp32 results equal torch's
 gather form to rounding.
+
+The matrices are built on the host at each call and copied to the input's
+device, each in the span ``ops.upload:<bytes>``.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from nerf_qa_torch.utils.profiling import span
 
 
 def _resize_matrix(in_size: int, out_size: int,
@@ -37,6 +44,14 @@ def _resize_matrix(in_size: int, out_size: int,
     return mat
 
 
+def _upload(build, shape: tuple[int, int], dtype: torch.dtype,
+            device: torch.device) -> torch.Tensor:
+    """The host-built matrix ``build()`` of ``shape`` as a ``dtype`` tensor
+    on ``device``: build and copy in the span ``ops.upload:<bytes>``."""
+    with span("ops.upload", lambda: (math.prod(shape) * dtype.itemsize,)):
+        return torch.as_tensor(build(), dtype=dtype, device=device)
+
+
 def resize_bilinear(
     x: torch.Tensor,
     out_h: int,
@@ -58,15 +73,16 @@ def resize_bilinear(
     x = x.to(compute_dtype)
     first = True
     if h != out_h:
-        ah = _resize_matrix(h, out_h, align_corners) * scale
+        ah = _upload(lambda: _resize_matrix(h, out_h, align_corners) * scale,
+                     (out_h, h), compute_dtype, x.device)
         first = False
-        ah = torch.as_tensor(ah, dtype=compute_dtype, device=x.device)
         # (O, H) @ (N, H, W·C) -> (N, O, W·C)
         x = torch.matmul(ah, x.reshape(n, h, w * c)).reshape(n, out_h, w, c)
     if w != out_w:
-        aw = _resize_matrix(w, out_w, align_corners) * (scale if first else 1.0)
+        scale_w = scale if first else 1.0
+        aw = _upload(lambda: _resize_matrix(w, out_w, align_corners) * scale_w,
+                     (out_w, w), compute_dtype, x.device)
         first = False
-        aw = torch.as_tensor(aw, dtype=compute_dtype, device=x.device)
         # (N, H', C, W) @ (W, P) -> (N, H', C, P) -> NHWC
         x = torch.matmul(x.transpose(2, 3), aw.t()).transpose(2, 3)
     out = x.float().contiguous()
@@ -121,16 +137,16 @@ def _pool_matrix(in_size: int, out_size: int) -> np.ndarray:
     return m
 
 
-def _separable(x: torch.Tensor, mat_h: np.ndarray | None,
-               mat_w: np.ndarray | None) -> torch.Tensor:
-    """Apply (out, in) matrices along H and W of an NHWC tensor, in fp32."""
+def _separable(x: torch.Tensor, matrix, out_h: int, out_w: int) -> torch.Tensor:
+    """Apply the (out, in) matrices ``matrix(in, out)`` along H and W of an
+    NHWC tensor, in fp32 (none along an axis that keeps its size)."""
     n, h, w, c = x.shape
     x = x.float()
-    if mat_h is not None:
-        a = torch.as_tensor(mat_h, device=x.device)
+    if h != out_h:
+        a = _upload(lambda: matrix(h, out_h), (out_h, h), torch.float32, x.device)
         x = torch.matmul(a, x.reshape(n, h, w * c)).reshape(n, -1, w, c)
-    if mat_w is not None:
-        a = torch.as_tensor(mat_w, device=x.device)
+    if w != out_w:
+        a = _upload(lambda: matrix(w, out_w), (out_w, w), torch.float32, x.device)
         x = torch.matmul(a, x)  # (P, W) @ (N, H', W, C) -> (N, H', P, C)
     return x.contiguous()
 
@@ -139,18 +155,14 @@ def resize_bicubic(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """NHWC bicubic resize, fp32, torch semantics (align_corners=False, no
     antialias). The FeatUp JBU upsampler bicubic-upsamples its source
     before the adaptive filter."""
-    n, h, w, c = x.shape
-    return _separable(x, _bicubic_matrix(h, out_h) if h != out_h else None,
-                      _bicubic_matrix(w, out_w) if w != out_w else None)
+    return _separable(x, _bicubic_matrix, out_h, out_w)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """NHWC adaptive average pooling, fp32, torch semantics. FeatUp's
     JBUStack pools the guidance image to 2x the source grid at every
     stage, up to 256² from a 224² image."""
-    n, h, w, c = x.shape
-    return _separable(x, _pool_matrix(h, out_h) if h != out_h else None,
-                      _pool_matrix(w, out_w) if w != out_w else None)
+    return _separable(x, _pool_matrix, out_h, out_w)
 
 
 def resize_bilinear_aa(x: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

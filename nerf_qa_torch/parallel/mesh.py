@@ -142,6 +142,23 @@ def to_device(tree, device: torch.device):
     return _map(tree, move)
 
 
+def host_copy(tree, device: torch.device) -> tuple[int, int]:
+    """(bytes that ``to_device(tree, device)`` copies from host memory to a
+    GPU, 1 when any of them is unpinned host memory else 0). Reads the
+    arrays' metadata only; nothing moves to a CPU ``device``."""
+    moved = []
+
+    def visit(a):
+        if a is None or torch.device(device).type == "cpu":
+            return
+        if not torch.is_tensor(a):
+            moved.append((np.asarray(a).nbytes, True))
+        elif a.device.type == "cpu":
+            moved.append((a.numel() * a.element_size(), not a.is_pinned()))
+    _map(tree, visit)
+    return sum(n for n, _ in moved), int(any(p for _, p in moved))
+
+
 def shard_batch(mesh: Mesh, batch) -> list:
     """Split the leading axis of every array of ``batch`` (a tensor or
     numpy array, or a tuple / list / dict of them; None stays None) over

@@ -61,7 +61,7 @@ from nerf_qa_torch.logging.metrics import (
 )
 from nerf_qa_torch.models.fr import params_state
 from nerf_qa_torch.train.fr_train import FRTrainer, group_kfold_splits
-from nerf_qa_torch.utils.profiling import StepTimer, record_function
+from nerf_qa_torch.utils.profiling import span
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -309,7 +309,6 @@ def run_fold(args, fold: int, train_rows, test_rows, run_dir: str):
 
     sink = make_sink(args, run_dir)
     train_logger = MetricCollectionLogger("Train Metrics Dict", log_fn=sink)
-    timer = StepTimer()
 
     scene_of_video = {i: r["scene"] for i, r in enumerate(train_rows)}
     step = 0
@@ -326,7 +325,7 @@ def run_fold(args, fold: int, train_rows, test_rows, run_dir: str):
                      ).astype(np.int64)
                      if sampler is not None
                      else rng.permutation(len(cache["targets"])))
-            with record_function("train_epoch"):
+            with span("train_epoch"):
                 params, opt_state, _ = trainer.train_epoch_cached(
                     params, opt_state, cache, order, args.batch_size,
                     logger=train_logger, scene_of_video=scene_of_video,
@@ -334,12 +333,11 @@ def run_fold(args, fold: int, train_rows, test_rows, run_dir: str):
                     scene_type_of_video=train_types,
                 )
             step += max(1, len(order) // max(1, args.batch_size))
-            timer.tick()
             train_logger.log_summary(step)
     for epoch in ([] if use_cache else range(args.epochs)):
         if hasattr(train_loader.sampler, "set_epoch"):
             train_loader.sampler.set_epoch(epoch)
-        with record_function("train_epoch"):
+        with span("train_epoch"):
             for batch in train_loader:
                 dist, ref, score, vid = batch[:4]
                 vid = np.asarray(vid)
@@ -367,7 +365,6 @@ def run_fold(args, fold: int, train_rows, test_rows, run_dir: str):
                         [scene_of_video.get(int(v), "?") for v in vid]
                     ),
                 )
-                timer.tick()
                 step += 1
         train_logger.log_summary(step)
 

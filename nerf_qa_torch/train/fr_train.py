@@ -39,13 +39,13 @@ from typing import Any, Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nerf_qa_torch.config import FRModelConfig, TrainConfig, resolve_device
 from nerf_qa_torch.core import dists
 from nerf_qa_torch.models import fr
 from nerf_qa_torch.parallel import mesh as meshlib
 from nerf_qa_torch.train.schedules import make_schedule
+from nerf_qa_torch.utils.profiling import span
 
 SCHEDULE_FREE = ("sadamw", "schedule_free")
 
@@ -224,16 +224,16 @@ class FRTrainer:
 
     def _step_from_stats(self, params, opt_state, stats_5nc, targets,
                          sample_weights, stats, scene_types):
-        with record_function("fr.head_loss"):
+        with span("fr.head_loss"):
             loss, aux = self.loss_fn_cached(params, stats_5nc, targets,
                                             sample_weights, stats, scene_types)
-        with record_function("fr.backward"):
+        with span("fr.backward"):
             if self.mesh is not None and self.mesh.group is not None:
                 loss, aux = self._grads_over_group(params, opt_state, loss, aux,
                                                    sample_weights, targets)
             else:
                 loss.backward()
-        with record_function("fr.optimizer"):
+        with span("fr.optimizer"):
             self.optimizer.update(opt_state)
             if self.train_cfg.project_weights:
                 projected = dists.project_weights(params["dists"],

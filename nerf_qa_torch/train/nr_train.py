@@ -42,7 +42,6 @@ from typing import Iterable
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from nerf_qa_torch.config import TrainConfig, resolve_device
 from nerf_qa_torch.logging.metrics import MetricAggregator
@@ -51,6 +50,7 @@ from nerf_qa_torch.models.nr.layers import generator_at, init_lecun_normal_
 from nerf_qa_torch.models.nr.model import NRModel
 from nerf_qa_torch.parallel import mesh as meshlib
 from nerf_qa_torch.train.schedules import make_schedule
+from nerf_qa_torch.utils.profiling import span
 
 
 def scene_holdout_split(scenes, holdout_scenes: Iterable[str], methods=None,
@@ -129,11 +129,11 @@ class NRTrainer:
                                            **kw)
             else:
                 losses = self._sharded_losses(gt, r256, r224, kw)
-            with record_function("nr.backward"):
+            with span("nr.backward"):
                 losses["combined"].backward()
                 if self.mesh is not None:
                     self._reduce_grads()
-        with record_function("nr.optimizer"):
+        with span("nr.optimizer"):
             self.optimizer.step()
         self.step += 1
         return {k: v.detach() for k, v in losses.items()}
@@ -198,13 +198,15 @@ class NRTrainer:
         [0, 1] (numpy or tensors); returns the detached losses. ``score_std``
         / ``score_mean``: the per-frame DISTS targets of v6's calibration
         head (zeros when not given, as the JAX trainer passes);
-        ``sem_tokens``: cached ViT tokens in place of the ViT. The backward
-        and the update run in the profiler ranges ``nr.backward`` and
-        ``nr.optimizer``, after ``losses``' own."""
-        if score_std is None:
-            score_std = score_mean = torch.zeros((np.shape(gt)[0],), device=self.device)
-        return self._step(gt, render_256, render_224, score_std=score_std,
-                          score_mean=score_mean, sem_tokens=sem_tokens)
+        ``sem_tokens``: cached ViT tokens in place of the ViT. The step runs
+        in the span ``nr.train_step``; the backward and the update in
+        ``nr.backward`` and ``nr.optimizer``, after ``losses``' own."""
+        with span("nr.train_step"):
+            if score_std is None:
+                score_std = score_mean = torch.zeros((np.shape(gt)[0],),
+                                                     device=self.device)
+            return self._step(gt, render_256, render_224, score_std=score_std,
+                              score_mean=score_mean, sem_tokens=sem_tokens)
 
     def train_step_score_map(self, gt, render_256, render_224,
                              score_map) -> dict[str, torch.Tensor]:

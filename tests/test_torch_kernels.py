@@ -285,6 +285,41 @@ def test_channelnorm_module_launches_both_kernels_under_grad(dtype):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_channelnorm_backward_runs_in_its_span(dtype, tmp_path):
+    # the backward kernel and its finalize are launched inside the span
+    # nr.cn_bwd:<rows>:<c>:<gelu>:<itemsize>, opened on autograd's thread
+    import json
+
+    from nerf_qa_torch.models.nr.layers import ChannelNorm, nchw
+
+    cn = ChannelNorm(387).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    x = nchw(torch.randn(2, 9, 11, 387, generator=gen, device="cuda")).to(dtype)
+    x.requires_grad_(True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        cn(x, gelu=True).sum().backward()
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / "t.json"))
+    events = json.loads((tmp_path / "t.json").read_text())["traceEvents"]
+    size = torch.tensor([], dtype=dtype).element_size()
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e["name"].startswith("nr.cn_bwd")]
+    assert [e["name"] for e in spans] == [f"nr.cn_bwd:{2 * 9 * 11}:387:1:{size}"]
+    fwd = [e for e in events if e.get("cat") == "user_annotation"
+           and e["name"].startswith("nr.cn:")]
+    assert [e["name"] for e in fwd] == [f"nr.cn:{2 * 9 * 11}:387:1:{size}"]
+    lo, hi = spans[0]["ts"], spans[0]["ts"] + spans[0]["dur"]
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    inside = [e["name"] for e in events
+              if e.get("cat") == "kernel" and "channel_norm_bwd" in e["name"]
+              and lo <= launched.get(e["args"].get("correlation"), -1) <= hi]
+    assert len(inside) == 2 and any("finalize" in k for k in inside), inside
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_channelnorm_kernels_under_remat(dtype):
     # a v7/v8 decoder with remat on the card (a small one: decoder depths
