@@ -3,13 +3,13 @@
 Run from the repository root:  python3 chip_smoke.py
 
 It builds the CUDA kernels from ``nerf_qa_torch/csrc`` (moments, JBU,
-ChannelNorm forward and backward, windowed T/S) and holds each against its
-plain PyTorch version on the card. It drives every path at full width and
-checks that each went through its kernels:
+ChannelNorm forward and backward, windowed T/S, the VGG epilogues) and
+holds each against its plain PyTorch version on the card. It drives every
+path at full width and checks that each went through its kernels:
 
 * FR DISTS through ``FrameScorer`` (batch 128 of uint8 1080p pairs,
-  resized to 256², bf16, moments kernel), plus two pairs at full
-  resolution;
+  resized to 256², bf16, moments kernel, 17 VGG epilogue launches a
+  batch), plus two pairs at full resolution;
 * NR v8 through ``NRScorer`` / ``NRModel.forward`` (ViT-S/14 depth 12,
   decoder depths 2 / 2, batch 8, seeded random ViT, JBU, decoder and VGG
   weights): JBU, ChannelNorm and moments kernels; scores against the
@@ -143,6 +143,10 @@ STAGE_C = (3, 64, 128, 256, 512, 512)
 RTOL, ATOL = 1e-4, 1e-5  # fp32 sums taken in other orders over <= 2M terms
 SCORE_ATOL = 1e-4
 
+# launches of the VGG epilogue kernel a pyramid forward: bias + ReLU after
+# each of the 13 convs, the L2 pool's sqrt(. + 1e-12) in stages 2-5
+VGG_EPILOGUES = 17
+
 NR_BATCH = 8
 NR_BATCHES = 2  # batches of the counted NR run
 NR_TIMED = 5  # batches per timed turn
@@ -186,7 +190,8 @@ TRAIN_DTYPES = ("bfloat16", "float32")  # decoder: the CLI default, the parity p
 # runs lies on the loss's path (the last stage's resample does not run);
 # the losses take eager statistics
 TRAIN_LAUNCHES = {"moments": 0, "jbu": 4, "channelnorm": NR_CN_PER_BATCH,
-                  "channelnorm_bwd": NR_CN_PER_BATCH, "windowed_tsd": 0}
+                  "channelnorm_bwd": NR_CN_PER_BATCH, "windowed_tsd": 0,
+                  "vgg_epilogue": VGG_EPILOGUES}
 # the training step's profiler ranges (NRModel.losses, NRTrainer.train_step)
 # and the device time launched outside them
 TRAIN_LAYERS = ("encode_ms", "decoder_fwd_ms", "losses_ms", "backward_ms",
@@ -208,8 +213,9 @@ TRAIN_PLAIN_GRAD_RTOL = {"float32": 1e-4, "bfloat16": 5e-2}
 # to its largest value (the CPU parity tests' fp32 bar against JAX)
 TRAIN_CPU_GRAD_RTOL = 1e-3
 # the score-map step launches what the gt step does: its ADISTS takes the
-# plain T/S version under autograd (the kernel has no backward)
-SCOREMAP_LAUNCHES = dict(TRAIN_LAUNCHES)
+# plain T/S version under autograd (the kernel has no backward), and its
+# pyramid over the predicted image and the render is a second forward
+SCOREMAP_LAUNCHES = dict(TRAIN_LAUNCHES, vgg_epilogue=2 * VGG_EPILOGUES)
 # the score-map step's learning rate: the CLI's default. At 3e-4 its
 # score-map loss first rises for a few steps from the random init
 # (measured on the CPU at 128², full decoder width), at 1e-4 it falls
@@ -230,6 +236,12 @@ REMAT_RTOL = 1e-6
 VERSION_SCORE_LAUNCHES = {"moments": 6, "jbu": 0, "channelnorm": 0,
                           "channelnorm_bwd": 0, "windowed_tsd": 0}
 VERSION_TRAIN_LAUNCHES = dict.fromkeys(VERSION_SCORE_LAUNCHES, 0)
+
+
+def version_vgg_epilogues(v: int) -> int:
+    """The VGG epilogue launches of a v1-v6 batch or step: one pyramid
+    forward, and for v3 a second, whose decoder runs the five VGG stages."""
+    return VGG_EPILOGUES * (2 if v == 3 else 1)
 # v1-v6 card vs CPU, one fp32 step at 64² on inputs from a seed of their
 # own: the BatchNorm running averages after it relative to their largest
 # value (fp32 means over 8,192-32,768 values in another order); the decoder
@@ -270,7 +282,7 @@ FR_DTYPES = ("float32", "bfloat16")  # the CLI default, then the fast pyramid
 # launches per FR step, cache batch and eval batch: the moments kernel once
 # a stage on the dist and ref halves of one pyramid batch
 FR_LAUNCHES = {"moments": 6, "jbu": 0, "channelnorm": 0, "channelnorm_bwd": 0,
-               "windowed_tsd": 0}
+               "windowed_tsd": 0, "vgg_epilogue": VGG_EPILOGUES}
 # the FR step's profiler ranges (models/fr.pair_stats, FRTrainer)
 FR_LAYERS = ("pyramid_ms", "stats_ms", "head_loss_ms", "backward_ms",
              "optimizer_ms", "other_ms")
@@ -448,19 +460,20 @@ def channelnorm_calls(model, feats) -> list[tuple[int, int, bool]]:
 
 
 def reset_launches() -> None:
-    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
+    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, vgg_epilogue, windowed_tsd
 
     moments.launches = jbu.launches = channelnorm.launches = 0
-    channelnorm.bwd_launches = windowed_tsd.launches = 0
+    channelnorm.bwd_launches = windowed_tsd.launches = vgg_epilogue.launches = 0
 
 
 def launch_counts() -> dict[str, int]:
-    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
+    from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, vgg_epilogue, windowed_tsd
 
     return {"moments": moments.launches, "jbu": jbu.launches,
             "channelnorm": channelnorm.launches,
             "channelnorm_bwd": channelnorm.bwd_launches,
-            "windowed_tsd": windowed_tsd.launches}
+            "windowed_tsd": windowed_tsd.launches,
+            "vgg_epilogue": vgg_epilogue.launches}
 
 
 def kernel_attrs() -> dict[str, dict]:
@@ -630,7 +643,7 @@ def nr_path(vgg, gen):
     counts = launch_counts()
     want = {"jbu": 4 * NR_BATCHES, "moments": 6 * NR_BATCHES,
             "channelnorm": NR_CN_PER_BATCH * NR_BATCHES, "channelnorm_bwd": 0,
-            "windowed_tsd": 0}
+            "windowed_tsd": 0, "vgg_epilogue": VGG_EPILOGUES * NR_BATCHES}
     if counts != want:
         raise AssertionError(f"NR launches {counts}, expected {want}")
     if scores.shape != (NR_BATCHES * NR_BATCH,) or not np.isfinite(scores).all():
@@ -802,6 +815,108 @@ def pyramid_hw(h: int, w: int) -> list[tuple[int, int]]:
         h, w = (h - 1) // 2 + 1, (w - 1) // 2 + 1
         hw.append((h, w))
     return hw
+
+
+def vgg_epilogue_calls(n: int, h: int, w: int) -> list[tuple[str, tuple, bool]]:
+    """The 17 epilogue calls of one pyramid forward over n H×W images:
+    ("bias_relu", NCHW shape, square) after each conv, the last of stages
+    1-4 with its squares, and ("pool_root", shape, False) after each pool."""
+    from nerf_qa_torch.core.vgg import VGG16_STAGES
+
+    calls = []
+    for si, ((sh, sw), convs) in enumerate(zip(pyramid_hw(h, w)[1:], VGG16_STAGES)):
+        if si > 0:
+            calls.append(("pool_root", (n, convs[0][0], sh, sw), False))
+        for k, (_, cout) in enumerate(convs):
+            calls.append(("bias_relu", (n, cout, sh, sw), si < 4 and k == len(convs) - 1))
+    return calls
+
+
+def vgg_epilogue_bound(shape, square: bool, itemsize: int = 2) -> float:
+    """Least ms for one epilogue call: the map read and written once (and
+    its squares written) at the card's bandwidth."""
+    return (2 + square) * math.prod(shape) * itemsize / PEAK_BYTES_PER_S * 1e3
+
+
+def vgg_epilogue_timing(gen) -> dict[str, dict]:
+    """Phase timing (kernel vgg_epilogue): each epilogue call of a bf16
+    pyramid forward over a 1080p batch of 8 pairs (16 images) and a 256²
+    batch of 16 pairs (32), bit for bit against the plain version, then ms
+    a call (kernel, plain) and its bound, summed a batch. The plain
+    version is the PyTorch calls the pyramid made before the kernel (add_,
+    relu_, x*x; add_, sqrt_), so it is also the library yardstick. Then
+    the whole pyramid forward, plain and kernel in turns."""
+    from nerf_qa_torch.core.vgg import VGG16Pyramid, init_he_normal
+    from nerf_qa_torch.ops.cuda import vgg_epilogue as ve
+
+    out = {}
+    for label, (n, h, w) in (("1080p_b8", (16, 1080, 1920)), ("256_b16", (32, 256, 256))):
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        max_abs_err = 0.0
+        for kind, shape, square in vgg_epilogue_calls(n, h, w):
+            y = torch.empty(shape, dtype=torch.bfloat16, device="cuda",
+                            memory_format=torch.channels_last).normal_(generator=gen)
+            b = 0.1 * torch.randn(shape[1], generator=gen, device="cuda")
+            if kind == "bias_relu":
+                def kern():
+                    ve.bias_relu(y, b, square=square)
+
+                def plain():
+                    ve.bias_relu_plain(y, b, square=square)
+
+                got = ve.bias_relu(y.clone(), b, square=square)
+                want = ve.bias_relu_plain(y.clone(), b, square=square)
+            else:
+                y.abs_()
+
+                def kern():
+                    ve.pool_root(y)
+
+                def plain():
+                    ve.pool_root_plain(y)
+
+                got, want = ve.pool_root(y.clone()), ve.pool_root_plain(y.clone())
+            for g, wt in zip(got if square else (got,), want if square else (want,)):
+                if not torch.equal(g.view(torch.int16), wt.view(torch.int16)):
+                    raise AssertionError(f"vgg_epilogue {kind} {shape} differs from plain")
+                max_abs_err = max(max_abs_err, float((g.float() - wt.float()).abs().max()))
+            del got, want
+            row = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                   "bound_ms": vgg_epilogue_bound(shape, square)}
+            for k in tot:
+                tot[k] += row[k]
+            phase("timing", kernel="vgg_epilogue", path=label, call=kind,
+                  shape=list(shape), square=square, dtype="bfloat16", **row)
+            del y
+        torch.cuda.empty_cache()
+
+        model = init_he_normal(VGG16Pyramid(), torch.Generator().manual_seed(0)).cuda()
+        x = torch.rand((n, h, w, 3), generator=gen, device="cuda")
+        ms = {"plain": [], "kernel": []}
+        per_forward = set()
+        with torch.no_grad():
+            for turn in ("plain", "kernel", "kernel", "plain"):
+                fns = ((ve.bias_relu_plain, ve.pool_root_plain) if turn == "plain"
+                       else (ve.bias_relu, ve.pool_root))
+                saved = ve.bias_relu, ve.pool_root
+                ve.bias_relu, ve.pool_root = fns
+                try:
+                    before = ve.launches
+                    ms[turn].append(time_ms(lambda: model(x, torch.bfloat16) and None, iters=5))
+                    launches = ve.launches - before
+                finally:
+                    ve.bias_relu, ve.pool_root = saved
+                if turn == "kernel":
+                    per_forward.add(launches / 6)  # a warm-up and 5 runs
+        if per_forward != {VGG_EPILOGUES}:
+            raise AssertionError(f"pyramid launches {per_forward} a forward, expected "
+                                 f"{VGG_EPILOGUES}")
+        del model, x
+        torch.cuda.empty_cache()
+        out[label] = dict(tot, library_ms=tot["plain_ms"], max_abs_err=max_abs_err,
+                          launches_per_forward=int(per_forward.pop()), pyramid_ms=ms)
+        phase("timing", kernel="vgg_epilogue", path=label, per_batch=out[label])
+    return out
 
 
 def tsd_shapes(batch: int, h: int, w: int) -> list[tuple[int, int, int, int]]:
@@ -1098,7 +1213,8 @@ def adists_path(model, gen) -> dict[str, int]:
     scores = torch.cat([adists_step(model, d, r, cfg) for d, r in batches]).cpu()
     counts = launch_counts()
     want = {"moments": 0, "jbu": 0, "channelnorm": 0, "channelnorm_bwd": 0,
-            "windowed_tsd": 5 * ADISTS_BATCHES}
+            "windowed_tsd": 5 * ADISTS_BATCHES,
+            "vgg_epilogue": VGG_EPILOGUES * ADISTS_BATCHES}
     if counts != want:
         raise AssertionError(f"ADISTS launches {counts}, expected {want}")
     if scores.shape != (ADISTS_BATCHES * BATCH,) or not torch.isfinite(scores).all():
@@ -2170,10 +2286,12 @@ def nr_versions(vgg, gen) -> None:
                     for k, t in stats0.items())
         train_rate = turns(lambda: trainer.train_step(gt, render, r224, std, mean),
                            ("kernels",) * 2, model, 3)["kernels"]
-        want_score = dict(VERSION_SCORE_LAUNCHES, moments=0 if v == 4 else 6)
+        want_score = dict(VERSION_SCORE_LAUNCHES, moments=0 if v == 4 else 6,
+                          vgg_epilogue=version_vgg_epilogues(v))
         ok = (gap <= SCORE_ATOL and bool(torch.isfinite(s_k).all()) and moved and stats0
               and score_counts == want_score
-              and train_counts == dict(VERSION_TRAIN_LAUNCHES)
+              and train_counts == dict(VERSION_TRAIN_LAUNCHES,
+                                       vgg_epilogue=version_vgg_epilogues(v))
               and all(math.isfinite(float(x)) for x in losses.values()))
         if not ok:
             raise AssertionError(f"NR v{v}: kernel vs eager {gap}, stats moved {moved}, "
@@ -2251,7 +2369,9 @@ def versions_cpu_parity() -> None:
                                               {k: t.cpu() for k, t in kw.items()}), cpu)
         if not (gaps["loss_gap"] <= SCORE_ATOL and grads_pass(gaps)
                 and gaps["running_stats_gap"] <= VERSION_STATS_RTOL
-                and not any(card[3].values()) and not grads_pass(fault)):
+                and card[3] == dict(VERSION_TRAIN_LAUNCHES,
+                                    vgg_epilogue=version_vgg_epilogues(v))
+                and not grads_pass(fault)):
             raise AssertionError(f"NR v{v} card vs CPU: {gaps}, launches {card[3]}; "
                                  f"the unbiased-variance fault {fault}")
         rows[f"v{v}"] = dict(gaps, unbiased_variance_fault=fault)
@@ -4535,6 +4655,7 @@ def main() -> int:
     attrs = kernel_attrs()
     jbu_err = check_jbu(gen)
     cn_err = check_channelnorm(gen)
+    ve_rows = vgg_epilogue_timing(gen)
 
     # 4. the main path at full width: batch-128 uint8 1080p pairs -> 256²
     cfg_k = DISTSConfig(compute_dtype="bfloat16", stats_impl="kernel")
@@ -4556,9 +4677,9 @@ def main() -> int:
     video = scorer.score_video(dist, ref, batch_size=BATCH)
     fr_counts = launch_counts()
     main_launches = fr_counts["moments"]
-    if main_launches != 6 * N_BATCHES:
-        raise AssertionError(f"moments launches {main_launches}, expected "
-                             f"{6 * N_BATCHES} (6 per batch)")
+    if main_launches != 6 * N_BATCHES or fr_counts["vgg_epilogue"] != VGG_EPILOGUES * N_BATCHES:
+        raise AssertionError(f"launches {fr_counts}, expected 6 moments and "
+                             f"{VGG_EPILOGUES} VGG epilogues per batch")
     s_k = scorer.score_frames(dist[:BATCH], ref[:BATCH], batch_size=BATCH)
     s_e = eager.score_frames(dist[:BATCH], ref[:BATCH], batch_size=BATCH)
     if not (np.isfinite(s_k).all() and math.isfinite(video)):
@@ -4822,6 +4943,20 @@ def main() -> int:
         "plain_ms": row["plain_ms"],
         "bound_ms": row["bound_ms"],
         "bound_by": row["bound_by"],
+        "library_ms": row["library_ms"],
+    })
+    row = ve_rows["1080p_b8"]  # the 1080p cell's batch: 8 pairs, 16 images
+    entries.append({
+        "name": "vgg_epilogue",
+        "route": "cuda",
+        "source": "nerf_qa_torch/csrc/vgg_epilogue.cu",
+        "replaces": "none: XLA fused the epilogue into the convs",
+        "launches": fr_counts["vgg_epilogue"],
+        "max_abs_err": max(r["max_abs_err"] for r in ve_rows.values()),
+        "ms": row["ms"],
+        "plain_ms": row["plain_ms"],
+        "bound_ms": row["bound_ms"],
+        "bound_by": "bytes",
         "library_ms": row["library_ms"],
     })
     print(json.dumps({"kernels": entries}), flush=True)

@@ -21,6 +21,11 @@ kernel reads it without a copy.
 Modes: fp32 (the parity path, run under ``true_fp32``: no TF32) and bf16
 (conv outputs bf16, bias and ReLU in bf16, as vgg.py:71-96 does; the L2
 pool runs in the flow dtype).
+
+Between the cuDNN convolutions, each elementwise chain is one pass
+(``ops/cuda/vgg_epilogue``): bias + ReLU after every conv, which after the
+last conv of stages 1-4 also writes the squares the next stage's L2 pool
+convolves (when no gradient is recorded), and the pool's sqrt(· + 1e-12).
 """
 from __future__ import annotations
 
@@ -32,7 +37,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from nerf_qa_torch.config import true_fp32
-from nerf_qa_torch.ops.l2pool import hann_filter, l2pool_nchw
+from nerf_qa_torch.ops.cuda import vgg_epilogue
+from nerf_qa_torch.ops.l2pool import hann_filter, l2pool_nchw, l2pool_squares
 from nerf_qa_torch.utils.profiling import span
 
 # (in_channels, out_channels) per conv, per stage (DISTS_pt.py:36-49).
@@ -68,6 +74,10 @@ class L2Pool(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return l2pool_nchw(x, self.filter)
 
+    def from_squares(self, sq: torch.Tensor) -> torch.Tensor:
+        """The pool of x given ``sq`` = x·x."""
+        return l2pool_squares(sq, self.filter)
+
 
 def normalize_imagenet(x: torch.Tensor) -> torch.Tensor:
     """(x - mean) / std on the trailing channel axis (DISTS_pt.py:92)."""
@@ -87,11 +97,15 @@ def _precision(dtype: torch.dtype):
     return true_fp32() if dtype == torch.float32 else contextlib.nullcontext()
 
 
-def _conv_relu(h: torch.Tensor, conv: nn.Conv2d,
-               dtype: torch.dtype) -> torch.Tensor:
-    """conv (output in ``dtype``), then bias and ReLU in ``dtype``."""
-    y = F.conv2d(h.to(dtype), conv.weight.to(dtype), padding=1)
-    return y.add_(conv.bias.to(dtype).view(1, -1, 1, 1)).relu_()
+def _conv(h: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """The 3x3 SAME conv without its bias, output in ``dtype``."""
+    return F.conv2d(h.to(dtype), conv.weight.to(dtype), padding=1)
+
+
+def _conv_relu(h: torch.Tensor, conv: nn.Conv2d, dtype: torch.dtype) -> torch.Tensor:
+    """conv (output in ``dtype``), then bias and ReLU in ``dtype`` in one
+    pass."""
+    return vgg_epilogue.bias_relu(_conv(h, conv, dtype), conv.bias)
 
 
 class VGG16Pyramid(nn.Module):
@@ -116,14 +130,31 @@ class VGG16Pyramid(nn.Module):
         """Stage 1..5: its L2 pool (stages 2-5) then its convs, in order."""
         return getattr(self, f"stage{stage_idx}")
 
-    def _run_stage(self, stage_idx: int, h: torch.Tensor,
-                   dtype: torch.dtype) -> torch.Tensor:
-        for layer in self.stage(stage_idx).children():
-            if isinstance(layer, L2Pool):
-                h = layer(h)
+    def _stages(self, h: torch.Tensor, dtype: torch.dtype, first: int = 1,
+                last: int = 5):
+        """Yield the output of stages ``first``..``last`` over NCHW ``h``,
+        in turn. Between two stages, when no gradient is recorded, the last
+        conv's pass also writes its output's squares and the next stage's
+        L2 pool convolves them; under a recorded gradient the pool squares
+        the output itself, so the ops and their gradient are the separate
+        ops'. Each intermediate (a conv's input, the squares, a pooled map)
+        is held only here and goes as soon as it has been read."""
+        sq = None
+        for si in range(first, last + 1):
+            *layers, end = self.stage(si).children()
+            for layer in layers:
+                if isinstance(layer, L2Pool):
+                    h, sq = (layer(h) if sq is None else layer.from_squares(sq)), None
+                else:
+                    h = _conv_relu(h, layer, dtype)
+            h = _conv(h, end, dtype)  # its input goes before the squares are allocated
+            if si < last and not (torch.is_grad_enabled() and h.requires_grad):
+                h, sq = vgg_epilogue.bias_relu(h, end.bias, square=True)
+                sq = sq.contiguous(memory_format=_CL)
             else:
-                h = _conv_relu(h, layer, dtype)
-        return h.contiguous(memory_format=_CL)
+                h = vgg_epilogue.bias_relu(h, end.bias)
+            h = h.contiguous(memory_format=_CL)
+            yield h
 
     def forward(self, x: torch.Tensor,
                 compute_dtype: torch.dtype = torch.float32) -> list[torch.Tensor]:
@@ -133,12 +164,10 @@ class VGG16Pyramid(nn.Module):
         span ``dists.vgg``."""
         with span("dists.vgg"):
             feats = [x.to(compute_dtype).contiguous()]
-            h = _nchw(x.float())
-            h = (h - self.mean) / self.std
             with _precision(compute_dtype):
-                for si in range(1, 6):
-                    # after stage 1, h is in the flow dtype; the pool keeps it
-                    h = self._run_stage(si, h, compute_dtype)
+                # after stage 1, h is in the flow dtype; the pool keeps it
+                for h in self._stages((_nchw(x.float()) - self.mean) / self.std,
+                                      compute_dtype):
                     feats.append(h.permute(0, 2, 3, 1))
             return feats
 
@@ -168,5 +197,5 @@ def vgg_stage_apply(model: VGG16Pyramid, stage_idx: int, x: torch.Tensor, *,
     """Apply one frozen stage (1-based) to NHWC ``x``. Stages 2-5 pool in
     fp32 first (the input is upcast), as the JAX ``vgg_stage_apply`` does."""
     with _precision(compute_dtype):
-        return model._run_stage(stage_idx, _nchw(x.float()),
-                                compute_dtype).permute(0, 2, 3, 1)
+        (h,) = model._stages(_nchw(x.float()), compute_dtype, stage_idx, stage_idx)
+        return h.permute(0, 2, 3, 1)

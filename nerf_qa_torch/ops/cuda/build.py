@@ -126,6 +126,11 @@ def load_library() -> ctypes.CDLL:
                                              ctypes.POINTER(ctypes.c_float),
                                              ci, vp]
             lib.nqt_windowed_tsd.restype = ci
+            ll = ctypes.c_longlong
+            lib.nqt_bias_relu.argtypes = [vp, vp, vp, ll, ci, ll, ci, ci, ci, vp]
+            lib.nqt_bias_relu.restype = ci
+            lib.nqt_pool_root.argtypes = [vp, ll, ci, ci, ci, vp]
+            lib.nqt_pool_root.restype = ci
             ip = ctypes.POINTER(ctypes.c_int)
             lib.nqt_jbu_attrs.argtypes = [ci, ci, ip]
             lib.nqt_jbu_attrs.restype = ci

@@ -6,8 +6,10 @@ with a normalised 3x3 Hann window (hanning(5) minus its endpoints),
 stride 2, padding 1, then sqrt(· + 1e-12).
 
 One formulation, ``F.conv2d(groups=C)`` through cuDNN, in the caller's
-flow dtype; the JAX package's band-matmul branch was a size dispatch
-measured on a TPU and is not carried over.
+flow dtype, then sqrt(· + 1e-12) in one pass (``ops/cuda/vgg_epilogue``);
+the JAX package's band-matmul branch was a size dispatch measured on a TPU
+and is not carried over. The VGG pyramid hands the pool the squares its
+last conv pass already wrote (:func:`l2pool_squares`).
 """
 from __future__ import annotations
 
@@ -16,6 +18,8 @@ import functools
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from nerf_qa_torch.ops.cuda import vgg_epilogue
 
 
 @functools.cache
@@ -32,15 +36,21 @@ def hann_filter(channels: int, filter_size: int = 5) -> torch.Tensor:
     return win[None, None].repeat(channels, 1, 1, 1)
 
 
+def l2pool_squares(sq: torch.Tensor, filt: torch.Tensor, *,
+                   stride: int = 2) -> torch.Tensor:
+    """L2 pooling of an NCHW tensor given its squares ``sq`` = x·x (in
+    ``x.dtype`` and layout): the window conv, then sqrt(· + 1e-12)."""
+    pad = (filt.shape[-1] - 1) // 2
+    out = F.conv2d(sq, filt.to(device=sq.device, dtype=sq.dtype),
+                   stride=stride, padding=pad, groups=sq.shape[1])
+    return vgg_epilogue.pool_root(out)
+
+
 def l2pool_nchw(x: torch.Tensor, filt: torch.Tensor, *,
                 stride: int = 2) -> torch.Tensor:
     """L2 pooling of an NCHW tensor (channels_last memory is kept), in
     ``x.dtype``, with the (C, 1, k, k) window ``filt``."""
-    c = x.shape[1]
-    pad = (filt.shape[-1] - 1) // 2
-    out = F.conv2d(x * x, filt.to(device=x.device, dtype=x.dtype),
-                   stride=stride, padding=pad, groups=c)
-    return out.add_(1e-12).sqrt_()
+    return l2pool_squares(x * x, filt, stride=stride)
 
 
 def l2pool(x: torch.Tensor, *, filter_size: int = 5,

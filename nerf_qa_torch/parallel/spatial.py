@@ -48,6 +48,7 @@ from nerf_qa_torch.core.adists import (
     windowed_gamma_sum,
 )
 from nerf_qa_torch.core.vgg import _CL, L2Pool, VGG16Pyramid, _nchw, _precision
+from nerf_qa_torch.ops.cuda import vgg_epilogue
 from nerf_qa_torch.ops.cuda.moments import moment_sums, stats_from_sums
 from nerf_qa_torch.ops.cuda.windowed_tsd import windowed_tsd, windowed_tsd_plain
 from nerf_qa_torch.ops.resize import resize_bilinear
@@ -108,8 +109,7 @@ def _conv_relu_spatial(hs, convs, dtype) -> list[torch.Tensor]:
     pad = (1, 1)
     if len(hs) > 1:
         hs, pad = _halo(hs, bottom=True), (0, 1)
-    return [F.conv2d(h, c.weight.to(dtype), padding=pad)
-            .add_(c.bias.to(dtype).view(1, -1, 1, 1)).relu_()
+    return [vgg_epilogue.bias_relu(F.conv2d(h, c.weight.to(dtype), padding=pad), c.bias)
             for h, c in zip(hs, convs)]
 
 
@@ -120,8 +120,8 @@ def _l2pool_spatial(hs, pools) -> list[torch.Tensor]:
     pad = (1, 1)
     if len(hs) > 1:
         sq, pad = _halo(sq, bottom=False), (0, 1)
-    return [F.conv2d(s, p.filter.to(s.dtype), stride=2, padding=pad,
-                     groups=s.shape[1]).add_(1e-12).sqrt_()
+    return [vgg_epilogue.pool_root(F.conv2d(s, p.filter.to(s.dtype), stride=2,
+                                            padding=pad, groups=s.shape[1]))
             for s, p in zip(sq, pools)]
 
 

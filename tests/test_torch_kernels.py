@@ -4,10 +4,12 @@ These need an NVIDIA GPU with nvcc and skip elsewhere. Run them on the
 card with (tests/conftest.py imports JAX, which the card's machine need not
 have):  python -m pytest tests/test_torch_kernels.py -m cuda --noconftest
 """
+import contextlib
+
 import pytest
 import torch
 
-from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, windowed_tsd
+from nerf_qa_torch.ops.cuda import channelnorm, jbu, moments, vgg_epilogue, windowed_tsd
 
 pytestmark = pytest.mark.cuda
 
@@ -618,3 +620,297 @@ def test_default_frame_scorer_launches_the_moments_kernel():
     scores = scorer.score_frames(frames, frames.flip(0), batch_size=2)
     assert moments.launches == before + 6
     assert scores.shape == (2,)
+
+
+# ---- the VGG epilogues (csrc/vgg_epilogue.cu): bit for bit against plain
+
+# output channels of the pyramid's 13 convolutions
+VGG_CONV_WIDTHS = (64, 64, 128, 128, 256, 256, 256, 512, 512, 512, 512, 512, 512)
+SPECIALS = (float("nan"), float("inf"), float("-inf"), -0.0, 0.0, 1e-39, -1e-39,
+            1e-40, -1e-44, 3e-38, -3e-38, 1.0, -1.0, 0.5, -2.75, 1e38, -3e38,
+            -1e-12, -1e-13, 1e-30)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+def _assert_bits(got: torch.Tensor, want: torch.Tensor, strides: bool = True) -> None:
+    assert got.shape == want.shape and (got.stride() == want.stride() or not strides)
+    diff = _bits(got) != _bits(want)
+    if bool(diff.any()):
+        i = int(diff.flatten().nonzero()[0])
+        raise AssertionError(f"{int(diff.sum())} values differ; first "
+                             f"{got.flatten()[i].item()} vs {want.flatten()[i].item()}")
+
+
+def _conv_out(shape, dtype, seed=0, channels_last=True):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = torch.randn(shape, generator=g, device="cuda").to(dtype)
+    return y.contiguous(memory_format=torch.channels_last) if channels_last else y
+
+
+def _bias_relu_both(y, b, square):
+    want = vgg_epilogue.bias_relu_plain(y.clone(), b, square=square)
+    before = vgg_epilogue.launches
+    got = vgg_epilogue.bias_relu(y, b, square=square)
+    torch.cuda.synchronize()
+    assert vgg_epilogue.launches == before + 1
+    return got, want
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("conv", range(len(VGG_CONV_WIDTHS)))
+def test_bias_relu_matches_plain_bit_for_bit(conv, dtype, square):
+    c = VGG_CONV_WIDTHS[conv]
+    y = _conv_out((2, c, 11, 17), dtype, seed=conv)
+    b = 0.5 * torch.randn(c, device="cuda")
+    got, want = _bias_relu_both(y, b, square)
+    if square:
+        _assert_bits(got[0], want[0])
+        _assert_bits(got[1], want[1])
+        assert got[0].data_ptr() == y.data_ptr()  # in place
+    else:
+        _assert_bits(got, want)
+        assert got.data_ptr() == y.data_ptr()
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 9, 16), (1, 3, 5, 7), (2, 12, 3, 5)])
+def test_bias_relu_nchw_and_odd_widths(shape, dtype, square):
+    """NCHW maps (ST-LPIPS's blur pool hands the conv one) take the plane
+    path; widths that are no multiple of the vector take scalar accesses."""
+    for channels_last in (False, True):
+        y = _conv_out(shape, dtype, channels_last=channels_last)
+        b = torch.randn(shape[1], device="cuda")
+        got, want = _bias_relu_both(y, b, square)
+        for g, w in zip(got if square else (got,), want if square else (want,)):
+            _assert_bits(g, w)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bias_relu_special_values(dtype, square):
+    vals = torch.tensor(SPECIALS, device="cuda").to(dtype)
+    n = len(SPECIALS)
+    # every value of y (one a row) against every value of the bias
+    y = vals.view(n, 1).repeat(1, 64).view(n, 64, 1, 1)
+    b = torch.cat([vals, vals.flip(0), vals, vals.flip(0)])[:64]
+    got, want = _bias_relu_both(y, b, square)
+    for g, w in zip(got if square else (got,), want if square else (want,)):
+        _assert_bits(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bias_relu_unaligned_view(dtype):
+    shape = (2, 64, 7, 9)
+    base = torch.randn(1 + 2 * 64 * 7 * 9, device="cuda").to(dtype)
+    y = base[1:].view(2, 7, 9, 64).permute(0, 3, 1, 2)  # channels_last, 2/4-byte offset
+    assert y.is_contiguous(memory_format=torch.channels_last) and y.data_ptr() % 16
+    assert vgg_epilogue.bias_relu_plan(y.numel(), 64, 1, y.element_size(), False, 132).vec == 1
+    b = torch.randn(64, device="cuda")
+    got, want = _bias_relu_both(y, b, True)
+    _assert_bits(got[0], want[0])
+    _assert_bits(got[1], want[1])
+    assert got[0].shape == shape
+
+
+def test_epilogues_above_2_31_elements():
+    """64-bit offsets: a bf16 channels_last map of 2.15 G values (~4.3 GB)."""
+    shape = (1, 64, 5800, 5800)
+    assert 64 * 5800 * 5800 > 2**31
+    y = torch.empty(shape, dtype=torch.bfloat16, device="cuda",
+                    memory_format=torch.channels_last).normal_()
+    b = torch.randn(64, device="cuda")
+    got, want = _bias_relu_both(y, b, True)
+    _assert_bits(got[0], want[0])
+    _assert_bits(got[1], want[1])
+    del want
+    p = got[1]
+    want = vgg_epilogue.pool_root_plain(p.clone())
+    _assert_bits(vgg_epilogue.pool_root(p), want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", [(2, 64, 540, 960), (2, 128, 270, 480), (2, 256, 135, 240),
+                                   (2, 512, 68, 120), (2, 512, 5, 7), (1, 3, 5, 7)])
+def test_pool_root_matches_plain_bit_for_bit(shape, dtype):
+    for channels_last in (True, False):
+        p = _conv_out(shape, dtype, channels_last=channels_last).abs_()
+        p[0, 0, 0] = 0.0
+        want = vgg_epilogue.pool_root_plain(p.clone())
+        before = vgg_epilogue.launches
+        got = vgg_epilogue.pool_root(p)
+        torch.cuda.synchronize()
+        assert vgg_epilogue.launches == before + 1 and got.data_ptr() == p.data_ptr()
+        _assert_bits(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pool_root_special_values_and_unaligned_view(dtype):
+    vals = torch.tensor(SPECIALS, device="cuda").to(dtype)
+    p = vals.repeat(7).view(1, 1, 7, len(SPECIALS))
+    _assert_bits(vgg_epilogue.pool_root(p.clone()), vgg_epilogue.pool_root_plain(p.clone()))
+    base = torch.rand(1 + 2 * 64 * 5 * 6, device="cuda").to(dtype)
+    q = base[1:].view(2, 64, 5, 6)
+    assert q.data_ptr() % 16
+    want = vgg_epilogue.pool_root_plain(q.clone())
+    _assert_bits(vgg_epilogue.pool_root(q), want)
+
+
+def _plain_pyramid(monkeypatch, model, x, dtype):
+    with monkeypatch.context() as m:
+        m.setattr(vgg_epilogue, "bias_relu", vgg_epilogue.bias_relu_plain)
+        m.setattr(vgg_epilogue, "pool_root", vgg_epilogue.pool_root_plain)
+        before = vgg_epilogue.launches
+        feats = model(x, dtype)
+        assert vgg_epilogue.launches == before
+    return feats
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_pyramid_at_1080p_matches_the_plain_path_bit_for_bit(dtype, monkeypatch):
+    from nerf_qa_torch.core.vgg import VGG16Pyramid, init_he_normal
+
+    gen = torch.Generator().manual_seed(0)
+    model = init_he_normal(VGG16Pyramid(), gen)
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if name.endswith("bias"):
+                t.copy_(0.05 * torch.randn(t.shape, generator=gen))
+    model = model.cuda()
+    x = torch.rand((2, 1080, 1920, 3), generator=torch.Generator(device="cuda").manual_seed(1),
+                   device="cuda")  # one pair through one pyramid forward
+    with torch.no_grad():
+        want = _plain_pyramid(monkeypatch, model, x, dtype)
+        before = vgg_epilogue.launches
+        got = model(x, dtype)
+        torch.cuda.synchronize()
+    assert vgg_epilogue.launches == before + 17
+    for g, w in zip(got, want):
+        _assert_bits(g, w)
+
+
+@pytest.mark.parametrize("square", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_epilogue_backward_matches_pytorch(dtype, square):
+    g = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn((2, 64, 9, 10), generator=g, device="cuda").to(dtype)
+    x = x.contiguous(memory_format=torch.channels_last)
+    b = torch.randn(64, generator=g, device="cuda")
+    cot = torch.randn((2, 64, 9, 10), generator=g, device="cuda").to(dtype)
+
+    if square:  # under autograd the caller makes the squares
+        with pytest.raises(RuntimeError, match="recorded gradient"):
+            vgg_epilogue.bias_relu(x.clone().requires_grad_(True) * 1, b, square=True)
+
+    def run(relu, root):
+        leaf = x.clone().requires_grad_(True)
+        h = relu(leaf * 1, b)
+        sq = h * h if square else None
+        p = root(h * 1 + 0.25)
+        loss = (p * cot).sum() + (0 if sq is None else (sq * cot).sum())
+        (grad,) = torch.autograd.grad(loss, leaf)
+        return p.detach(), grad
+
+    before = vgg_epilogue.launches
+    got = run(vgg_epilogue.bias_relu, vgg_epilogue.pool_root)
+    assert vgg_epilogue.launches == before + 2
+    want = run(vgg_epilogue.bias_relu_plain, lambda p: vgg_epilogue.pool_root_plain(p))
+    _assert_bits(got[0], want[0])
+    _assert_bits(got[1], want[1], strides=False)  # autograd picks the layout
+
+
+def test_bias_relu_rejects_a_bias_that_requires_grad_and_strided_maps():
+    y = torch.randn((1, 8, 4, 4), device="cuda")
+    with pytest.raises(RuntimeError, match="requires grad"):
+        vgg_epilogue.bias_relu(y, torch.zeros(8, device="cuda", requires_grad=True))
+    with pytest.raises(ValueError, match="contiguous"):
+        vgg_epilogue.bias_relu(y[:, :, ::2], torch.zeros(8, device="cuda"))
+
+
+def _seeded_vgg():
+    from nerf_qa_torch.core.vgg import VGG16Pyramid, init_he_normal
+
+    gen = torch.Generator().manual_seed(0)
+    model = init_he_normal(VGG16Pyramid(), gen)
+    with torch.no_grad():
+        for name, t in model.named_parameters():
+            if name.endswith("bias"):
+                t.copy_(0.05 * torch.randn(t.shape, generator=gen))
+    return model.cuda()
+
+
+def _kernel_and_plain(monkeypatch, run):
+    """``run()`` through the kernels, then through the plain versions;
+    returns both results and the kernels' launches."""
+    before = vgg_epilogue.launches
+    got = run()
+    torch.cuda.synchronize()
+    launched = vgg_epilogue.launches - before
+    with monkeypatch.context() as m:
+        m.setattr(vgg_epilogue, "bias_relu", vgg_epilogue.bias_relu_plain)
+        m.setattr(vgg_epilogue, "pool_root", vgg_epilogue.pool_root_plain)
+        want = run()
+    return got, want, launched
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_spatial_pyramid_takes_the_kernel_bit_for_bit(dtype, monkeypatch):
+    """parallel/spatial over four H-slabs of one card: the conv outputs of
+    the haloed slabs and the pools of the haloed squares go through the
+    kernel (17 launches a slab) and give the plain ops' bits; the DISTS
+    and ADISTS scores over the mesh equal the plain path's."""
+    from nerf_qa_torch.config import ADISTSConfig, DISTSConfig, true_fp32
+    from nerf_qa_torch.core import dists
+    from nerf_qa_torch.parallel import spatial
+    from nerf_qa_torch.parallel.mesh import create_mesh, replicate
+
+    model = _seeded_vgg()
+    g = torch.Generator(device="cuda").manual_seed(5)
+    x = torch.rand((2, 256, 96, 3), generator=g, device="cuda")
+    y = (x + 0.05 * torch.randn(x.shape, generator=g, device="cuda")).clamp(0, 1)
+    mesh = create_mesh([torch.device("cuda", 0)] * 4, model_parallel=4)
+    models = replicate(mesh, model)
+    slabs = list(x.chunk(4, dim=1))
+    name = "float32" if dtype == torch.float32 else "bfloat16"
+    w = dists.load_pretrained_weights().to("cuda")
+    precision = true_fp32 if dtype == torch.float32 else contextlib.nullcontext
+    with torch.no_grad(), precision():
+        got, want, launched = _kernel_and_plain(
+            monkeypatch, lambda: spatial._pyramid_spatial([model] * 4, slabs, dtype))
+        assert launched == 17 * 4
+        for slab_got, slab_want in zip(got, want):
+            for a, b in zip(slab_got, slab_want):
+                _assert_bits(a, b)
+        got, want, launched = _kernel_and_plain(monkeypatch, lambda: spatial.spatial_dists_forward(
+            models, w, x, y, mesh, DISTSConfig(compute_dtype=name)))
+        assert launched == 17 * 4 and torch.equal(got, want)
+        got, want, launched = _kernel_and_plain(monkeypatch, lambda: spatial.spatial_adists_forward(
+            models, x, y, mesh, ADISTSConfig(compute_dtype=name), as_loss=False))
+        assert launched == 17 * 4 and torch.equal(got, want)
+
+
+def test_iqa_vgg_takes_the_kernel_bit_for_bit(monkeypatch):
+    """eval/iqa's fp32 VGG, behind LPIPS's max pools (channels_last maps)
+    and ST-LPIPS's blur pools (NCHW maps after the first stage, the plane
+    path): 13 bias-ReLU launches a pyramid, and the features and scores
+    are the plain ops'."""
+    from nerf_qa_torch.config import true_fp32
+    from nerf_qa_torch.eval import iqa
+
+    model = _seeded_vgg()
+    g = torch.Generator(device="cuda").manual_seed(6)
+    x = torch.rand((2, 96, 128, 3), generator=g, device="cuda")
+    y = (x + 0.05 * torch.randn(x.shape, generator=g, device="cuda")).clamp(0, 1)
+    with torch.no_grad(), true_fp32():
+        for pyramid, score in ((iqa._lpips_pyramid, iqa.lpips),
+                               (iqa._st_lpips_pyramid, iqa.st_lpips)):
+            got, want, launched = _kernel_and_plain(monkeypatch, lambda: pyramid(model, x))
+            assert launched == 13
+            for a, b in zip(got, want):
+                _assert_bits(a, b)
+            got, want, launched = _kernel_and_plain(monkeypatch, lambda: score(model, x, y))
+            assert launched == 2 * 13 and torch.equal(got, want)

@@ -1,5 +1,5 @@
-"""Launch plans of the port's JBU, windowed T/S and ChannelNorm backward
-kernels, on the CPU.
+"""Launch plans of the port's JBU, windowed T/S, ChannelNorm backward and
+VGG epilogue kernels, on the CPU.
 
 The plans are plain Python (tiles, channel groups, copy path, grid); the
 kernels that run them need the card (tests/test_torch_kernels.py). Each
@@ -10,10 +10,11 @@ sources, held by their static_asserts, and the card's test reads them
 """
 from types import SimpleNamespace
 
+import numpy as np
 import pytest
 import torch
 
-from nerf_qa_torch.ops.cuda import build, channelnorm as cn, jbu, windowed_tsd as tsd
+from nerf_qa_torch.ops.cuda import build, channelnorm as cn, jbu, vgg_epilogue as ve, windowed_tsd as tsd
 from nerf_qa_torch.ops.windowed import gaussian_taps
 
 GRID_X_MAX = 2**31 - 1
@@ -182,3 +183,75 @@ def test_sm_count_is_read_once_per_device(monkeypatch):
         assert calls == [torch.device("cuda", 0), torch.device("cuda", 1)]
     finally:
         build.sm_count.cache_clear()
+
+
+# ---- the VGG epilogues (csrc/vgg_epilogue.cu)
+
+EPILOGUE_SHAPES = [(2, 64, 9, 13), (1, 3, 5, 7), (3, 12, 4, 4), (2, 512, 3, 5),
+                   (1, 256, 1, 1), (2, 20, 3, 3), (1, 8, 2, 2)]
+
+
+def _epilogue_cover(plan, numel, *, c=None, inner=None):
+    """Walk the kernel's grid-stride loop (thread t takes vectors t, t +
+    stride, ...) and return how often each value is touched. With ``c``
+    (the row path) check that a thread keeps its channels; with ``inner``
+    (the plane path) that a vector stays inside one channel plane."""
+    stride = plan.blocks * ve.THREADS
+    nvec = numel // plan.vec
+    count = np.zeros(numel, dtype=np.int64)
+    for t in range(min(stride, nvec)):
+        idx = np.arange(t, nvec, stride)[:, None] * plan.vec + np.arange(plan.vec)
+        count[idx.ravel()] += 1
+        if c is not None:
+            assert (idx % c == (t % plan.row_vecs) * plan.vec + np.arange(plan.vec)).all()
+        if inner is not None:
+            assert (idx // inner == idx[:, :1] // inner).all()
+    return count
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("layout", ["channels_last", "nchw"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", EPILOGUE_SHAPES)
+def test_vgg_epilogue_plan_covers_each_value_once(shape, dtype, layout, aligned):
+    n, c, h, w = shape
+    numel = n * c * h * w
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    inner = 1 if layout == "channels_last" else h * w
+    plan = ve.bias_relu_plan(numel, c, inner, itemsize, aligned, 4)
+    run = c if inner == 1 else inner
+    full = 16 // itemsize
+    # the scalar path exactly where the pointer is unaligned or a vector
+    # would cross a channel's run
+    assert plan.vec == (full if aligned and run % full == 0 else 1)
+    assert 1 <= plan.blocks <= GRID_X_MAX
+    assert (plan.blocks * ve.THREADS) % plan.row_vecs == 0
+    if inner == 1:
+        count = _epilogue_cover(plan, numel, c=c)
+    else:
+        count = _epilogue_cover(plan, numel, inner=inner)
+    assert (count == 1).all()
+    pool = ve.pool_root_plan(numel, itemsize, aligned, 4)
+    assert pool.vec == (full if aligned and numel % full == 0 else 1)
+    assert (_epilogue_cover(pool, numel) == 1).all()
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_vgg_epilogue_plan_at_the_pyramid_shapes(dtype):
+    """A 1080p batch of 8 pairs (16 images) on 132 SMs: every call takes
+    16-byte accesses, the grid fills the card once and its stride keeps
+    each thread on its channels; stage 1 passes 2**31 values."""
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    hw = [(1080, 1920), (540, 960), (270, 480), (135, 240), (68, 120)]
+    widths = [64, 128, 256, 512, 512]
+    assert 16 * 64 * 1080 * 1920 < 2**31 < 2 * 16 * 64 * 1080 * 1920
+    for (h, w), c in zip(hw, widths):
+        numel = 16 * c * h * w
+        plan = ve.bias_relu_plan(numel, c, 1, itemsize, True, 132)
+        assert plan.vec == 16 // itemsize and plan.row_vecs == c // plan.vec
+        assert plan.blocks == 132 * ve.BLOCKS_PER_SM
+        assert (plan.blocks * ve.THREADS) % plan.row_vecs == 0
+        pool = ve.pool_root_plan(numel // 4, itemsize, True, 132)
+        assert pool.vec == 16 // itemsize and pool.blocks == 132 * ve.BLOCKS_PER_SM
+    big = ve.bias_relu_plan(64 * 5800 * 5800, 64, 1, 2, True, 132)
+    assert big.vec == 8 and big.blocks == 132 * ve.BLOCKS_PER_SM
