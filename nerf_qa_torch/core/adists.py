@@ -28,6 +28,13 @@ counterpart: at full resolution γ comes from ``windowed_gamma_sum`` and the
 T/S map from the kernel (its plain version loops over channel blocks).
 
 The statistics run in true fp32 (no TF32): var = W(f²) − W(f)² cancels.
+
+Spans (``utils/profiling.span``): ``adists.forward`` around the call,
+``adists.weights`` around the entropy weights, and per stage
+``adists.norms`` (the inverse L2 norms), ``adists.ps:<n>:<h>:<w>:<c>`` (γ
+and the cascade step, in either branch), ``adists.tsd:<n>:<h>:<w>:<c>:
+<itemsize>`` (the windowed T/S map) or ``adists.global`` (a stage smaller
+than the window).
 """
 from __future__ import annotations
 
@@ -41,6 +48,7 @@ from nerf_qa_torch.core.vgg import VGG16Pyramid
 from nerf_qa_torch.ops.cuda.windowed_tsd import windowed_tsd, windowed_tsd_plain
 from nerf_qa_torch.ops.resize import resize_bilinear
 from nerf_qa_torch.ops.windowed import fits_window, window_mean
+from nerf_qa_torch.utils.profiling import span
 
 _C0 = 1e-12
 _EPS = 1e-6
@@ -191,8 +199,9 @@ def _global_stage(f: torch.Tensor, g: torch.Tensor, inv_x: torch.Tensor,
     vf = (f - mf).square().mean(dim=(1, 2), keepdim=True)
     vg = (g - mg).square().mean(dim=(1, 2), keepdim=True)
     cov = (f * g).mean(dim=(1, 2), keepdim=True) - mf * mg
-    gamma = (vf / (mf + _C0)).mean(dim=-1, keepdim=True)
-    ps = _prob_update(gamma, ps_prod, False)
+    with span("adists.ps", lambda: f.shape):
+        gamma = (vf / (mf + _C0)).mean(dim=-1, keepdim=True)
+        ps = _prob_update(gamma, ps_prod, False)
     ix = inv_x[:, None, None, :]
     iy = inv_y[:, None, None, :]
     x_mean, y_mean = ix * mf, iy * mg
@@ -211,7 +220,14 @@ def forward(
     as_map: bool = False,
 ) -> torch.Tensor:
     """ADISTS forward on NHWC batches in [0, 1] (ADISTS.py:137-197).
-    Entropy weights and γ come from ``x`` only: the metric is asymmetric."""
+    Entropy weights and γ come from ``x`` only: the metric is asymmetric.
+    Runs in the span ``adists.forward``."""
+    with span("adists.forward"):
+        return _forward(model, x, y, cfg, as_loss, as_map)
+
+
+def _forward(model: VGG16Pyramid, x: torch.Tensor, y: torch.Tensor,
+             cfg: ADISTSConfig, as_loss: bool, as_map: bool) -> torch.Tensor:
     if x.shape != y.shape:
         raise ValueError(
             f"ADISTS requires identically shaped inputs, got {tuple(x.shape)} "
@@ -226,7 +242,8 @@ def forward(
            functools.partial(windowed_tsd_plain, channel_block=cfg.channel_block))
 
     with true_fp32():
-        weight = channel_weights(feats_x)
+        with span("adists.weights"):
+            weight = channel_weights(feats_x)
         offsets = [0]
         for f in feats_x:
             offsets.append(offsets[-1] + f.shape[-1])
@@ -240,16 +257,20 @@ def forward(
             f_raw, g_raw = feats_x[k], feats_y[k]
             h, w = f_raw.shape[1], f_raw.shape[2]
             w_k = weight[:, offsets[k]:offsets[k + 1]]
-            inv_x, inv_y = _inv_l2_norm(f_raw), _inv_l2_norm(g_raw)
+            with span("adists.norms"):
+                inv_x, inv_y = _inv_l2_norm(f_raw), _inv_l2_norm(g_raw)
             if fits_window(h, w, ws):
-                gamma = _stage_gamma(f_raw, ws, cfg.block_pixels_threshold,
-                                     cfg.channel_block)
-                ps_prod = _prob_update(gamma, ps_prod, True)
-                d_map = tsd(f_raw, g_raw, ps_prod, w_k, ws, inv_x=inv_x,
-                            inv_y=inv_y)
+                with span("adists.ps", lambda: f_raw.shape):
+                    gamma = _stage_gamma(f_raw, ws, cfg.block_pixels_threshold,
+                                         cfg.channel_block)
+                    ps_prod = _prob_update(gamma, ps_prod, True)
+                with span("adists.tsd", lambda: (*f_raw.shape, f_raw.element_size())):
+                    d_map = tsd(f_raw, g_raw, ps_prod, w_k, ws, inv_x=inv_x,
+                                inv_y=inv_y)
             else:
-                d_map, ps_prod = _global_stage(f_raw, g_raw, inv_x, inv_y, w_k,
-                                               ps_prod)
+                with span("adists.global"):
+                    d_map, ps_prod = _global_stage(f_raw, g_raw, inv_x, inv_y,
+                                                   w_k, ps_prod)
             if as_map:
                 d_map_full += resize_bilinear(d_map[..., None], big_h, big_w)[..., 0]
             d_total += d_map.mean(dim=(1, 2))

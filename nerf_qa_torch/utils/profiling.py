@@ -32,6 +32,13 @@ The spans, outermost first (``:`` and the integers each carries):
   ``nr.decoder`` (``NRDecoder.forward``), ``nr.cn:<rows>:<c>:<gelu>:
   <itemsize>`` (a ChannelNorm) and, on autograd's thread, ``nr.cn_bwd`` with
   the same integers (the ChannelNorm backward kernel's call);
+* ``adists.forward`` (``core/adists.forward``); inside it ``dists.vgg``,
+  ``adists.weights`` (the entropy channel weights), and for each stage,
+  coarse to fine, ``adists.norms`` (the inverse spatial L2 norms of both
+  maps), ``adists.ps:<n>:<h>:<w>:<c>`` (γ and the cascade step: the stage's
+  NHWC shape) and either ``adists.tsd:<n>:<h>:<w>:<c>:<itemsize>`` (the
+  windowed T/S map of a stage that fits the window) or ``adists.global``
+  (a stage smaller than the window, with its ``adists.ps`` inside);
 * ``ops.upload:<bytes>`` around each tensor a step builds on the host and
   places on its device, the build included (``ops/resize``'s matrices,
   the JBU's spatial Gaussian);
