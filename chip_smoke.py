@@ -171,6 +171,10 @@ FULL_BATCH = 2
 # windowed T/S kernel vs its plain version: fp32 window sums in other
 # orders, as a share of the d-map's largest value
 TSD_RTOL = 1e-4
+# windowed γ kernel vs its plain version: fp32 window sums in other orders,
+# of each value, and 1e-7 of the map's largest (values near 0)
+GAMMA_RTOL = 1e-5
+GAMMA_BATCH = 8  # the adists-1080-b8 cell's batch
 # per-image ADISTS, T/S kernel vs plain (the same ps and weights on both
 # sides, only the d-map's rounding differs)
 ADISTS_PLAIN_ATOL = 1e-5
@@ -479,12 +483,14 @@ def launch_counts() -> dict[str, int]:
 def kernel_attrs() -> dict[str, dict]:
     """Phase kernel_attrs: registers, local memory, shared memory and
     resident blocks an SM of every variant of the T/S kernel (dtype, copy
-    path, tile shape), of the JBU kernel and of the ChannelNorm backward
-    (dtype, values a lane, at the variant's widest C), from
+    path, tile shape), of the γ kernel (dtype, copy path), of the JBU
+    kernel and of the ChannelNorm backward (dtype, values a lane, at the
+    variant's widest C), from
     cudaFuncGetAttributes and the occupancy calculator. Fails on local
     memory (spills) or on fewer blocks an SM than a kernel's launch bounds
     or its launch plan take."""
     from nerf_qa_torch.ops.cuda import build, channelnorm, jbu
+    from nerf_qa_torch.ops.cuda import windowed_gamma as wg
     from nerf_qa_torch.ops.cuda import windowed_tsd as tsd
 
     lib = build.load_library()
@@ -495,6 +501,8 @@ def kernel_attrs() -> dict[str, dict]:
             for s, shp in enumerate(tsd.SHAPES):
                 out[tsd_variant(dt, vec, s)] = dict(build.kernel_attrs(
                     lib.nqt_windowed_tsd_attrs, bf, vec, s), plan_blocks_per_sm=shp.blocks_per_sm)
+            out[f"windowed_gamma {name} vec={vec}"] = dict(build.kernel_attrs(
+                lib.nqt_windowed_gamma_attrs, bf, vec), plan_blocks_per_sm=wg.BLOCKS_PER_SM)
             if not (bf and vec):
                 out[f"jbu {name} vec={vec}"] = dict(build.kernel_attrs(
                     lib.nqt_jbu_attrs, bf, vec), plan_blocks_per_sm=jbu.BLOCKS_PER_SM)
@@ -1041,6 +1049,61 @@ def check_tsd(gen, attrs) -> tuple[float, dict[str, dict]]:
     return max(worst.values()), totals
 
 
+def gamma_bound(shape, itemsize: int) -> tuple[float, str]:
+    """Least time for one windowed γ sum (the benchmark's
+    ``gamma_roofline.adists``): the map read once, the channel sum written
+    once; per channel one square per input pixel, 21 taps × 2 moments of
+    multiply-adds in the H pass (Hk·W outputs) and in the W pass (Hk·Wk
+    outputs), and ~5 operations of the ratio and the sum per output, at
+    the fp32 rate."""
+    n, h, w, c = shape
+    hk, wk = h - 20, w - 20
+    n_bytes = n * h * w * c * itemsize + n * hk * wk * 4
+    ops = n * c * (h * w + 84 * hk * w + 89 * hk * wk)
+    t_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_gamma(gen) -> dict[str, float]:
+    """Phase gamma_vs_plain: the windowed γ kernel against its plain
+    version (channel blocks of 16) at the stages the 1080p path blocks
+    (above 448² pixels: stages 0-2) at the ``adists-1080-b8`` cell's batch
+    of 8, in bf16 and fp32, a bit-for-bit repeat, and a timing row per
+    stage in bf16 (the path's dtype). Returns the summed timing row."""
+    from nerf_qa_torch.ops.cuda import build
+    from nerf_qa_torch.ops.cuda import windowed_gamma as wg
+
+    shapes = [s for s in tsd_shapes(GAMMA_BATCH, *FRAME_HW) if s[1] * s[2] > 448 * 448]
+    worst = {}
+    tot = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for dt in (torch.bfloat16, torch.float32):
+        for shape in shapes:
+            f = torch.rand(shape, generator=gen, device="cuda").to(dt)
+            key = f"{shape} {str(dt).split('.')[-1]}"
+            want = wg.windowed_gamma_sum_plain(f, 21, 16)
+            got = wg.windowed_gamma_sum(f)
+            worst[key] = check_max(got, want, GAMMA_RTOL,
+                                   1e-7 * float(want.abs().max()),
+                                   f"windowed_gamma {key} vs plain")
+            if dt == torch.bfloat16:
+                if not torch.equal(got, wg.windowed_gamma_sum(f)):
+                    raise AssertionError(f"windowed_gamma {key}: no bit-for-bit repeat")
+                bound, by = gamma_bound(shape, 2)
+                row = {"ms": time_ms(lambda: wg.windowed_gamma_sum(f), 10),
+                       "plain_ms": time_ms(lambda: wg.windowed_gamma_sum_plain(f, 21, 16), 2),
+                       "bound_ms": bound}
+                for k in tot:
+                    tot[k] += row[k]
+                phase("timing", kernel="windowed_gamma", path="1080", shape=list(shape),
+                      dtype="bfloat16", max_abs_err=worst[key], bound_by=by,
+                      plan=wg._plan(*shape, dt, True, build.sm_count(0))._asdict(),
+                      roofline_pct=100 * bound / row["ms"], **row)
+            del f, got, want
+    phase("gamma_vs_plain", rel_tol=GAMMA_RTOL, max_abs_err=worst, per_batch=tot)
+    return tot
+
+
 def adists_step(model, d_u8, r_u8, cfg) -> torch.Tensor:
     """One ADISTS batch of the 256² serving path: uint8 frames, fast bf16
     resize with the 1/255 scale folded in, then the score CLI's own batch
@@ -1194,6 +1257,7 @@ def adists_path(model, gen) -> dict[str, int]:
     counted, checked against the plain T/S version, timed in turns and
     broken down by layer. Returns the launch counts of the counted run."""
     from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.ops.cuda import windowed_gamma
 
     cfg = ADISTSConfig(compute_dtype="bfloat16")
     plain = cfg.replace(fused_tsd=False)
@@ -1210,13 +1274,16 @@ def adists_path(model, gen) -> dict[str, int]:
     torch.cuda.reset_peak_memory_stats()
 
     reset_launches()
+    gamma_before = windowed_gamma.launches
     scores = torch.cat([adists_step(model, d, r, cfg) for d, r in batches]).cpu()
     counts = launch_counts()
     want = {"moments": 0, "jbu": 0, "channelnorm": 0, "channelnorm_bwd": 0,
             "windowed_tsd": 5 * ADISTS_BATCHES,
             "vgg_epilogue": VGG_EPILOGUES * ADISTS_BATCHES}
-    if counts != want:
-        raise AssertionError(f"ADISTS launches {counts}, expected {want}")
+    # no 256² stage is above 448² pixels: the γ kernel never runs
+    if counts != want or windowed_gamma.launches != gamma_before:
+        raise AssertionError(f"ADISTS launches {counts}, expected {want}; γ "
+                             f"{windowed_gamma.launches - gamma_before}, expected 0")
     if scores.shape != (ADISTS_BATCHES * BATCH,) or not torch.isfinite(scores).all():
         raise AssertionError(f"ADISTS scores {scores}")
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1260,9 +1327,10 @@ def adists_path(model, gen) -> dict[str, int]:
 
 def adists_fullres(model, gen) -> None:
     """Phase adists_fullres: two fp32 1080p pairs at full resolution, bf16
-    config: kernel against the plain T/S version, launches, frames/s and
-    peak memory."""
+    config: kernel against the plain T/S version (both with the γ kernel),
+    launches, frames/s and peak memory."""
     from nerf_qa_torch.config import ADISTSConfig
+    from nerf_qa_torch.ops.cuda import windowed_gamma
     from nerf_qa_torch.tools.score import adists_batch
 
     cfg = ADISTSConfig(compute_dtype="bfloat16")
@@ -1273,20 +1341,24 @@ def adists_fullres(model, gen) -> None:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
+    gamma_before = windowed_gamma.launches
     got = adists_batch(model, x, y, cfg).cpu()
     launches = launch_counts()["windowed_tsd"]
+    # the γ kernel at the stages above 448² pixels: 0-2
+    gamma_launches = windowed_gamma.launches - gamma_before
     peak = torch.cuda.max_memory_allocated() / 2**30
     want = adists_batch(model, x, y, plain).cpu()
-    if launches != 6 or not torch.isfinite(got).all():
+    if launches != 6 or gamma_launches != 3 or not torch.isfinite(got).all():
         raise AssertionError(f"full-resolution ADISTS: launches {launches}, "
-                             f"scores {got}")
+                             f"γ launches {gamma_launches}, scores {got}")
     gap = float((got - want).abs().max())
     if gap > ADISTS_PLAIN_ATOL:
         raise AssertionError(f"full-resolution ADISTS kernel vs plain gap {gap}")
     ms = {name: time_ms(lambda c=c: adists_batch(model, x, y, c), 2)
           for name, c in (("kernel", cfg), ("plain", plain))}
     phase("adists_fullres", frame_hw=list(FRAME_HW), batch=FULL_BATCH,
-          scores=got.tolist(), launches=launches, kernel_vs_plain_max_gap=gap,
+          scores=got.tolist(), launches=launches, gamma_launches=gamma_launches,
+          kernel_vs_plain_max_gap=gap,
           frames_per_s_kernel=FULL_BATCH / (ms["kernel"] / 1e3),
           frames_per_s_plain=FULL_BATCH / (ms["plain"] / 1e3), peak_mem_gib=peak)
 
@@ -4803,9 +4875,11 @@ def main() -> int:
     del nr
     nr_rows, nr_errs = nr_timing(cn_calls, gen, attrs)
 
-    # 8. ADISTS: the T/S kernel at both paths' shapes, the window_mean
-    # choice, the 256² path, full resolution, CPU parity and the CLI
+    # 8. ADISTS: the T/S kernel at both paths' shapes, the γ kernel at the
+    # 1080p cell's blocked stages, the window_mean choice, the 256² path,
+    # full resolution, CPU parity and the CLI
     tsd_err, tsd_rows = check_tsd(gen, attrs)
+    check_gamma(gen)
     repeat_check(gen)
     window_mean_choice(gen)
     adists_counts = adists_path(model, gen)

@@ -24,27 +24,31 @@ The L2 normalisation is a per-(image, channel) scale, so the T/S map takes
 the raw features and the inverse norms and scales the windowed moments.
 The JAX package's ``_stage_moments_blocked`` (one scan sharing five
 windowed moments between γ and T/S, a TPU pass-count optimisation) has no
-counterpart: at full resolution γ comes from ``windowed_gamma_sum`` and the
-T/S map from the kernel (its plain version loops over channel blocks).
+counterpart: at full resolution γ comes from ``windowed_gamma_sum`` (the
+γ kernel ``ops/cuda/windowed_gamma.py`` on CUDA tensors, a loop over
+channel blocks otherwise) and the T/S map from the kernel (its plain
+version loops over channel blocks).
 
 The statistics run in true fp32 (no TF32): var = W(f²) − W(f)² cancels.
 
 Spans (``utils/profiling.span``): ``adists.forward`` around the call,
 ``adists.weights`` around the entropy weights, and per stage
 ``adists.norms`` (the inverse L2 norms), ``adists.ps:<n>:<h>:<w>:<c>`` (γ
-and the cascade step, in either branch), ``adists.tsd:<n>:<h>:<w>:<c>:
-<itemsize>`` (the windowed T/S map) or ``adists.global`` (a stage smaller
-than the window).
+and the cascade step, in either branch; inside it, on the card,
+``adists.gamma:<n>:<h>:<w>:<c>:<itemsize>`` around the γ kernel),
+``adists.tsd:<n>:<h>:<w>:<c>:<itemsize>`` (the windowed T/S map) or
+``adists.global`` (a stage smaller than the window).
 """
 from __future__ import annotations
 
 import functools
-from typing import Iterator, Sequence
+from typing import Sequence
 
 import torch
 
 from nerf_qa_torch.config import ADISTSConfig, torch_dtype, true_fp32
 from nerf_qa_torch.core.vgg import VGG16Pyramid
+from nerf_qa_torch.ops.cuda import windowed_gamma
 from nerf_qa_torch.ops.cuda.windowed_tsd import windowed_tsd, windowed_tsd_plain
 from nerf_qa_torch.ops.resize import resize_bilinear
 from nerf_qa_torch.ops.windowed import fits_window, window_mean
@@ -67,27 +71,20 @@ def _minmax_norm(x: torch.Tensor) -> torch.Tensor:
     return (x - mn) / (mx - mn + _C0)
 
 
-def _channel_blocks(f: torch.Tensor, block: int) -> Iterator[torch.Tensor]:
-    """The channel blocks of an NHWC map, ``block`` channels each (the
-    last may be narrower: the JAX package zero-pads it for ``lax.scan``,
-    and zero channels add nothing to the blocked sums)."""
-    for c0 in range(0, f.shape[-1], block):
-        yield f[..., c0:c0 + block]
-
-
 def windowed_gamma_sum(f: torch.Tensor, window_size: int, block: int) -> torch.Tensor:
-    """Channel-blocked windowed var/mean ratio SUM over channels,
-    (N, H, W, C) -> (N, Hk, Wk, 1): only ``block`` channels of VALID moment
-    maps are live at a time. Callers divide by the channel count."""
-    n, h, w, _ = f.shape
-    hk, wk = h - window_size + 1, w - window_size + 1
-    tot = torch.zeros((n, hk, wk), dtype=torch.float32, device=f.device)
-    for fk in _channel_blocks(f, block):
-        fk = fk.float()
-        m = window_mean(fk, window_size)
-        v = window_mean(fk * fk, window_size) - m.square()
-        tot += (v / (m + _C0)).sum(dim=-1)
-    return tot[..., None]
+    """Windowed var/mean ratio SUM over channels, (N, H, W, C) ->
+    (N, Hk, Wk, 1) fp32. Callers divide by the channel count.
+
+    CPU tensors, and calls where autograd would record ``f``, take the
+    plain loop (``ops/cuda/windowed_gamma.windowed_gamma_sum_plain``:
+    ``block`` channels of VALID moment maps live at a time). CUDA tensors
+    otherwise launch the kernel in the span ``adists.gamma:<n>:<h>:<w>:
+    <c>:<itemsize>``; it keeps the moment maps on chip, so ``block`` has no
+    effect there. Any other device raises."""
+    if f.device.type == "cpu" or (torch.is_grad_enabled() and f.requires_grad):
+        return windowed_gamma.windowed_gamma_sum_plain(f, window_size, block)
+    with span("adists.gamma", lambda: (*f.shape, f.element_size())):
+        return windowed_gamma.windowed_gamma_sum(f, window_size)
 
 
 def _stage_gamma(f: torch.Tensor, window_size: int, block_pixels: int,

@@ -126,6 +126,11 @@ def load_library() -> ctypes.CDLL:
                                              ctypes.POINTER(ctypes.c_float),
                                              ci, vp]
             lib.nqt_windowed_tsd.restype = ci
+            lib.nqt_windowed_gamma.argtypes = [vp, vp, vp, ci, ci, ci, ci, ci,
+                                               ci, ci, ci, ci,
+                                               ctypes.POINTER(ctypes.c_float),
+                                               ci, vp]
+            lib.nqt_windowed_gamma.restype = ci
             ll = ctypes.c_longlong
             lib.nqt_bias_relu.argtypes = [vp, vp, vp, ll, ci, ll, ci, ci, ci, vp]
             lib.nqt_bias_relu.restype = ci
@@ -136,6 +141,8 @@ def load_library() -> ctypes.CDLL:
             lib.nqt_jbu_attrs.restype = ci
             lib.nqt_windowed_tsd_attrs.argtypes = [ci, ci, ci, ip]
             lib.nqt_windowed_tsd_attrs.restype = ci
+            lib.nqt_windowed_gamma_attrs.argtypes = [ci, ci, ip]
+            lib.nqt_windowed_gamma_attrs.restype = ci
             lib.nqt_channel_norm_bwd_attrs.argtypes = [ci, ci, ip]
             lib.nqt_channel_norm_bwd_attrs.restype = ci
             lib.nqt_error_string.argtypes = [ci]

@@ -36,7 +36,8 @@ The spans, outermost first (``:`` and the integers each carries):
   ``adists.weights`` (the entropy channel weights), and for each stage,
   coarse to fine, ``adists.norms`` (the inverse spatial L2 norms of both
   maps), ``adists.ps:<n>:<h>:<w>:<c>`` (γ and the cascade step: the stage's
-  NHWC shape) and either ``adists.tsd:<n>:<h>:<w>:<c>:<itemsize>`` (the
+  NHWC shape; inside it, where the γ kernel runs, ``adists.gamma:<n>:<h>:
+  <w>:<c>:<itemsize>``) and either ``adists.tsd:<n>:<h>:<w>:<c>:<itemsize>`` (the
   windowed T/S map of a stage that fits the window) or ``adists.global``
   (a stage smaller than the window, with its ``adists.ps`` inside);
 * ``ops.upload:<bytes>`` around each tensor a step builds on the host and

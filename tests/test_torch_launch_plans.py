@@ -1,5 +1,5 @@
-"""Launch plans of the port's JBU, windowed T/S, ChannelNorm backward and
-VGG epilogue kernels, on the CPU.
+"""Launch plans of the port's JBU, windowed T/S, windowed γ, ChannelNorm
+backward and VGG epilogue kernels, on the CPU.
 
 The plans are plain Python (tiles, channel groups, copy path, grid); the
 kernels that run them need the card (tests/test_torch_kernels.py). Each
@@ -15,6 +15,7 @@ import pytest
 import torch
 
 from nerf_qa_torch.ops.cuda import build, channelnorm as cn, jbu, vgg_epilogue as ve, windowed_tsd as tsd
+from nerf_qa_torch.ops.cuda import windowed_gamma as wg
 from nerf_qa_torch.ops.windowed import gaussian_taps
 
 GRID_X_MAX = 2**31 - 1
@@ -96,6 +97,71 @@ def test_tsd_plan_shapes_and_channel_split():
 def test_tsd_taps_are_built_once():
     a = tsd._taps_array()
     assert tsd._taps_array() is a
+    assert list(a) == pytest.approx(list(gaussian_taps(21, 7.0)), rel=1e-7)
+
+
+# ---- the windowed γ sum (csrc/windowed_gamma.cu): the blocked stages of
+# the 1080p path at batch 8, spatial ADISTS's slabs, edge shapes
+
+GAMMA_SHAPES = [
+    (8, 1080, 1920, 3), (8, 1080, 1920, 64), (8, 540, 960, 128),
+    (16, 256, 256, 64), (2, 272, 480, 256), (1, 68, 120, 512), (1, 21, 21, 3),
+    (2, 37, 53, 5), (1, 40, 1920, 8), (3, 150, 64, 7), (65535, 21, 30, 4),
+]
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("shape", GAMMA_SHAPES)
+def test_gamma_plan_covers_each_output_once(shape, dtype, aligned):
+    n, h, w, c = shape
+    hk, wk = h - 20, w - 20
+    plan = wg._plan(n, h, w, c, dtype, aligned)
+    assert 1 <= plan.tw <= wg.TW_MAX
+    cover = torch.zeros((hk, wk), dtype=torch.int32)
+    for r in range(plan.tiles_h):
+        for q in range(plan.tiles_w):
+            cover[r * wg.TILE_H:(r + 1) * wg.TILE_H, q * plan.tw:(q + 1) * plan.tw] += 1
+    assert bool((cover == 1).all())
+    assert (plan.tiles_h - 1) * wg.TILE_H < hk and (plan.tiles_w - 1) * plan.tw < wk
+    _assert_partition(c, plan.groups, plan.cg, plan.ccb)
+    vec_c = 8 if dtype == torch.bfloat16 else 4
+    assert plan.vec == (aligned and c % vec_c == 0)
+    assert plan.ccb == (vec_c if plan.vec else wg.LANES)
+    assert plan.tiles_h * plan.tiles_w <= GRID_X_MAX
+    assert n <= GRID_YZ_MAX and plan.groups <= GRID_YZ_MAX
+
+
+@pytest.mark.parametrize("shape,plan", [
+    # 1080p stage 0: bf16 image channels, plain loads, 19,152 blocks
+    ((8, 1080, 1920, 3), wg.Plan(106, 18, 133, 1, 4, 4, False)),
+    # stage 1 and 2: 16-byte copies of 8 bf16 channels, no split
+    ((8, 1080, 1920, 64), wg.Plan(106, 18, 133, 1, 64, 8, True)),
+    ((8, 540, 960, 128), wg.Plan(105, 9, 65, 1, 128, 8, True)),
+    # a 256² stage 1 at batch 16 (not blocked at the default threshold)
+    ((16, 256, 256, 64), wg.Plan(79, 3, 30, 1, 64, 8, True)),
+])
+def test_gamma_plan_at_the_path_shapes(shape, plan):
+    got = wg._plan(*shape)
+    assert got == plan
+    assert got.tiles_w * got.tiles_h * shape[0] >= 2 * wg.BLOCKS_PER_SM * 132
+
+
+def test_gamma_plan_splits_small_stages_only():
+    # a spatial slab's coarsest windowed stage gives 6 blocks: its channels
+    # split into groups of 8 until two waves fill 132 SMs
+    small = wg._plan(1, 68, 120, 512)
+    assert small.groups == 64 and small.cg == 8
+    assert wg._plan(1, 68, 120, 512, torch.float32).groups == 64
+    mid = wg._plan(2, 135, 240, 512)  # 90 blocks
+    assert mid.groups == 6 and mid.cg == 88
+    assert wg._plan(2, 135, 240, 512, sms=264).groups >= mid.groups
+    assert wg._plan(1, 21, 21, 3).groups == 1  # one chunk cannot split
+
+
+def test_gamma_taps_are_built_once():
+    a = wg._taps_array()
+    assert wg._taps_array() is a
     assert list(a) == pytest.approx(list(gaussian_taps(21, 7.0)), rel=1e-7)
 
 
